@@ -40,3 +40,9 @@ jax.config.update("jax_enable_x64", True)
 import tpuamg  # noqa: E402
 
 tpuamg.enable_compilation_cache()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (tpuamg_torch kernels); on the "
+        "card run with --noconftest -m gpu")
