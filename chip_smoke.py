@@ -22,6 +22,22 @@ Phases, one line of numbers each:
   5. the PCG solve of bench.py's protocol (gamma 1e6, tol 1e-12, maxiter
      50): iterations, reduction, s/iteration, nnz/s, launch counts;
   6. gamma 1, 1e6 and 1e8 at n=512 to tol 2e-5, f32 storage.
+The second slice, solve_system's grid branch (problems/solve.py) and the
+bidomain_2d driver, adds:
+  7. K3 (the Chebyshev sweep, csrc/cheb.cu) against its plain version on
+     level 0 of the route-(c) hierarchy at n=256, f32 storage;
+  8. K5 (the PCG chunk, csrc/pcg.cu) against its plain chunk at n=256 in
+     the driver's configuration (metric_schwarz: W-cycle, coarse_dof 100,
+     Chebyshev degree 3; gamma 1e6, f32); the route-(a) solve to 1e-8
+     beside the plain chunk's and route (b)'s on the same hierarchy, and
+     the same pair at n=512;
+  9. route (c), NL-AMLI(2), at n=256 to 1e-6 through solve_system, with
+     the kernel classes and with pallas=False;
+ 10. refine at n=512 (V-cycle, coarse_dof 4096, f32, refine 4, inner tol
+     2e-5, tol 1e-8) beside the TPU record;
+ 11. the driver, python -m tpuamg_torch.problems.bidomain_2d -backend grid
+     -dtype float32 -nrefs 4 -gamma 1e6 -precond metric_mono, in-process
+     in a temporary working directory.
 Then a JSON line {"kernels": [...]}, the nvidia-smi line, and, last, the
 result line {"ok": true, "device": {...}}.  Any failed check raises, and
 the script exits nonzero; a watchdog ends it, with a traceback and a
@@ -51,6 +67,14 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM float32 peak outside tensor cores
 # the launches of csrc/vcycle.cu that one cycle makes
 K2_STEPS = ("cheb_apply", "restrict", "prolong", "coarse_gemv",
             "coarse_reduce")
+# the launches of csrc/pcg.cu that one chunk makes
+K5_STEPS = ("pcg_rz", "pcg_pq", "pcg_xr", "pcg_finish")
+N2 = 256            # the second slice's full width: route (a)'s largest n
+# The TPU record of refine at n=512, gamma 1e6 (V-cycle, coarse_dof 4096,
+# f32, refine 4, inner tol 2e-5): Krylov iterations per refinement pass,
+# from docs/sample_results/bidomain_2d_tpu_gamma_n512.txt (the 1e6 row),
+# written by scripts/tpu_gamma_sweep.py.
+TPU_REFINE_PASSES = (13, 21)
 
 
 def say(*parts):
@@ -124,8 +148,13 @@ def ptxas_summary(log):
             short = re.sub(r"^_Z\w*?(\d+)", "", name)[:40] or name
             out.append(f"{short}:{m.group(1)}r")
             name = None
-    spills = [ln.strip() for ln in log.splitlines()
-              if "spill" in ln and not re.search(r"\b0 bytes spill", ln)]
+    spills, fn = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            fn = m.group(1)
+        elif "spill" in line and not re.search(r"\b0 bytes spill", line):
+            spills.append(f"{fn}: {line.strip()}")
     return out, spills
 
 
@@ -157,9 +186,10 @@ def scatter(b, slots, nflat, dev):
     return bk.to(dev)
 
 
-def run(n=N, device="cuda", coarse=COARSE):
+def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4):
     """All phases; returns the kernels list.  device='cpu' rehearses the
-    script's own logic with the plain versions (no kernels, no counts)."""
+    script's own logic with the plain versions (no kernels, no counts);
+    n2 and nrefs shrink the second slice's phases for such a rehearsal."""
     from tpuamg_torch import kernels
     from tpuamg_torch.sparse.dia_kernels import (KernelDIA, dia_spmv,
                                                  dia_spmv_plain)
@@ -384,7 +414,452 @@ def run(n=N, device="cuda", coarse=COARSE):
     say(f"[6 sweep] iterations to 2e-5 by gamma {sweep} "
         f"(TPU first pass: 19/13/9) | total "
         f"{time.perf_counter() - t_all:.1f} s")
+
+    # ---- 7-11: the second slice ----------------------------------------
+    slice2(dev, kern, A, b, n, n2, nrefs)
+    say(f"[11 done] total {time.perf_counter() - t_all:.1f} s")
     return kern
+
+
+def rel_err(a, b):
+    return float(torch.linalg.vector_norm((a - b).double())
+                 / torch.linalg.vector_norm(b.double()))
+
+
+def slice2(dev, kern, A512, b512, n512, n2, nrefs):
+    """Phases 7-11 (module docstring).  A512, b512: phase 5's system."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg.grid import grid_system, setup_grid
+    from tpuamg_torch.krylov import pcg
+    from tpuamg_torch.amg.grid_fused import (pcg_chunk, pcg_chunk_plain,
+                                             pcg_fused,
+                                             setup_grid_fused_pcg)
+    from tpuamg_torch.config import PRESETS
+    from tpuamg_torch.problems.solve import solve_system
+    from tpuamg_torch.sparse.dia_kernels import (_cheb_coefs,
+                                                 cheb_sweep_plain)
+    on_card = dev.type == "cuda"
+    rng = np.random.default_rng(1)
+    t0 = time.perf_counter()
+    A, b = system(GAMMA, n2)
+    sizes = (A.shape[0] // 2,) * 2
+    grid = ((n2 + 1, n2 + 1), 2)
+    say(f"[7 setup] n={n2} dofs={A.shape[0]} nnz={A.nnz} assembly "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- 7. K3 against its plain version -------------------------------
+    nl_amli = replace(PRESETS["metric_schwarz"], cycle_type="nl_amli",
+                      amli_degree=2, dtype="float32")
+    t0 = time.perf_counter()
+    prec, gslots, nd = setup_grid(A, grid[0], F=2, params=nl_amli,
+                                  dtype=torch.float32, device=dev)
+    sync(dev)
+    t_set = time.perf_counter() - t0
+    sm = prec.levels[0].smoother
+    x = torch.as_tensor(rng.standard_normal(nd), dtype=torch.float32
+                        ).to(dev)
+    bb = torch.as_tensor(rng.standard_normal(nd), dtype=torch.float32
+                         ).to(dev)
+    theta, coefs = _cheb_coefs(sm.lmax, sm.lmin, sm.degree, sm.kind)
+    before = kernels.LAUNCHES["cheb_sweep"]
+    xs_k, r_k = sm.smooth_residual(None, x, bb)
+    x2_k = sm.smooth(None, x, bb)
+    sync(dev)
+    check(not on_card or kernels.LAUNCHES["cheb_sweep"] == before + 2,
+          "cheb_sweep: one launch per smoother application")
+    xs_p, r_p = cheb_sweep_plain(sm.offsA, sm.planesA, sm.offsC, sm.planesC,
+                                 x, bb, theta, coefs, sm.degree, 1, True)
+    errs = {"smooth": rel_err(x2_k, xs_p), "smooth_residual x":
+            rel_err(xs_k, xs_p), "smooth_residual r": rel_err(r_k, r_p)}
+    abs_err = float(max((xs_k - xs_p).abs().max(), (r_k - r_p).abs().max()))
+    check(all(np.isfinite(e) and e <= 1e-5 for e in errs.values()),
+          f"K3 vs plain: rel errors {errs} > 1e-5")
+    reps = 100 if on_card else 1
+    ms = timed_ms(lambda: sm.smooth_residual(None, x, bb), reps, dev)
+    ms_s = timed_ms(lambda: sm.smooth(None, x, bb), reps, dev)
+    plain_ms = timed_ms(lambda: cheb_sweep_plain(
+        sm.offsA, sm.planesA, sm.offsC, sm.planesC, x, bb, theta, coefs,
+        sm.degree, 1, True), max(reps // 10, 1), dev)
+    pa = sm.planesA.numel() * sm.planesA.element_size()
+    pc = sm.planesC.numel() * sm.planesC.element_size()
+    k = sm.degree
+    nbytes = pa + pc + 4 * nd * 4            # x, b in; x, r out
+    flops = (k + 1) * 2 * sm.planesA.numel() + k * (
+        2 * sm.planesC.numel() + 3 * nd)
+    bms, by = bound_ms(nbytes, flops)
+    # the algorithm's own stream: per step an A pass (planes, x, b, t)
+    # and a C pass (planes, t, d and x read and written); one more A pass
+    stream = (k + 1) * (pa + 12 * nd) + k * (pc + 20 * nd)
+    say(f"[7 K3 cheb_sweep] level 0 n={nd} offsets A {len(sm.offsA)} C "
+        f"{len(sm.offsC)} {sm.planesA.dtype} degree {k} | rel err "
+        f"{errs} max_abs_err {abs_err:.3e} | smooth_residual {ms:.5f} ms "
+        f"smooth {ms_s:.5f} ms plain {plain_ms:.5f} ms | bound "
+        f"{bms:.5f} ms ({by}, inputs once {nbytes} B); streamed "
+        f"{stream} B = {stream / HBM_BYTES_PER_S * 1e3:.5f} ms | launches "
+        f"per application: 1 call, {2 * k + 1} device launches | library: "
+        f"none | hierarchy set-up {t_set:.2f} s")
+    k3 = dict(name="cheb_sweep", route="cuda",
+              source="tpuamg_torch/csrc/cheb.cu",
+              replaces="tpuamg/sparse/dia_pallas.py:436", launches=0,
+              max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+              bound_by=by, library_ms=None)
+    kern.append(k3)
+    del sm
+
+    # ---- 8. K5 against its plain chunk; routes (a) and (b) -------------
+    drv = replace(PRESETS["metric_schwarz"], dtype="float32")
+    t0 = time.perf_counter()
+    fp, slots, nflat = setup_grid_fused_pcg(A, grid[0], F=2, params=drv,
+                                            device=dev)
+    sync(dev)
+    t_set = time.perf_counter() - t0
+    say(f"[8 setup] n={n2} route-(a) hierarchy {t_set:.2f} s: "
+        f"{len(fp.vc.spec.levels)} levels, cycle "
+        f"{fp.vc.spec.cycle}, coarse_n {fp.vc.coarse_n}, outer offsets "
+        f"{len(fp.Q.offsets)}, nflat {nflat}")
+    vc = fp.vc
+    bk = scatter(b, slots, nflat, dev)
+    bm = bk * vc.mask_flat
+    z0 = vc.matvec(bm)
+    chunk = 8
+
+    def start():
+        return (torch.zeros_like(bm), bm.clone(), torch.zeros_like(bm),
+                z0.clone(), torch.full((1,), -1.0, device=dev))
+
+    kernels.reset_launches()
+    xk, _, _, _, st_k = pcg_chunk(fp, *start(), chunk)
+    xk, st_k = xk.clone(), st_k.clone()
+    sync(dev)
+    per_chunk = dict(kernels.LAUNCHES)
+    if on_card:
+        check(per_chunk.get("pcg_rz") == chunk + 1
+              and per_chunk.get("pcg_pq") == chunk
+              and per_chunk.get("pcg_xr") == chunk
+              and per_chunk.get("pcg_finish") == 1
+              and per_chunk.get("vcycle") == chunk,
+              f"K5 chunk launches {per_chunk}")
+    xp, _, _, _, st_p = pcg_chunk_plain(fp, *start(), chunk)
+    xp, st_p = xp.clone(), st_p.clone()
+    rows_k = st_k[:2, :5].double()
+    rows_p = st_p[:2, :5].double()
+    row_err = float(torch.linalg.vector_norm(rows_k - rows_p)
+                    / torch.linalg.vector_norm(rows_p))
+    x_err = rel_err(xk, xp)
+    abs_err = float((xk - xp).abs().max())
+    check(np.isfinite(row_err) and row_err <= 1e-5,
+          f"K5 vs plain: stats rows 0-1 rel err {row_err:.3e} > 1e-5")
+    check(np.isfinite(x_err) and x_err <= 1e-3,
+          f"K5 vs plain: x after {chunk} iterations rel err {x_err:.3e}")
+    ms = timed_ms(lambda: pcg_chunk(fp, *start(), chunk), 3 if on_card
+                  else 1, dev, warmup=1)
+    plain_ms = timed_ms(lambda: pcg_chunk_plain(fp, *start(), chunk), 1,
+                        dev, warmup=0)
+    nbytes, flops, stream = chunk_work(fp, chunk)
+    bms, by = bound_ms(nbytes, flops)
+    visits = per_chunk.get("restrict", 0) / max(per_chunk.get("vcycle",
+                                                              1), 1)
+    say(f"[8 K5 pcg_chunk] {chunk} iterations from rz_prev=-1: stats rows "
+        f"0-1 rel err {row_err:.3e}, x rel err {x_err:.3e} max_abs_err "
+        f"{abs_err:.3e} | chunk {ms:.4f} ms ({ms / chunk:.4f} ms/iteration)"
+        f" plain {plain_ms:.4f} ms | bound {bms:.5f} ms ({by}, inputs once "
+        f"{nbytes} B); streamed {stream} B = "
+        f"{stream / HBM_BYTES_PER_S * 1e3:.5f} ms | launches per chunk "
+        f"{per_chunk} | level visits per cycle {visits:g} | library: none")
+    k5 = dict(name="pcg_chunk", route="cuda",
+              source="tpuamg_torch/csrc/pcg.cu",
+              replaces="tpuamg/amg/grid_fused.py:679", launches=0,
+              max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+              bound_by=by, library_ms=None)
+    kern.append(k5)
+
+    # the route-(a) solve through solve_system, as the driver runs it
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rep = solve_system(A, b, "metric_mono", sizes, params=PRESETS[
+        "metric_schwarz"], tol=1e-8, maxiter=500, dtype=np.float32,
+        grid=grid, device=dev)
+    t_solve = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    tr = float(np.linalg.norm(b - A.matvec(rep.x)) / np.linalg.norm(b))
+    red = float(rep.residuals[-1] / rep.residuals[0])
+    check(rep.route == "a" and rep.converged and np.isfinite(tr)
+          and tr < 1e-5, f"route (a) at n={n2}: route {rep.route}, "
+          f"converged {rep.converged}, true rel residual {tr:.3e}")
+    if on_card:
+        for kname in K5_STEPS + K2_STEPS + ("pcg_chunk", "vcycle"):
+            check(counts.get(kname, 0) > 0,
+                  f"route (a): kernel {kname} not launched")
+        k5["launches"] = counts["pcg_chunk"]
+    it = max(rep.niters, 1)
+    # pcg_fused runs whole chunks (32) and cuts the history at the
+    # crossing: the card runs more iterations than the solve counts
+    ran = max(counts.get("vcycle", 0), 1)       # executed, + z0's cycle
+    nnz_iter = A.nnz + vc.cycle_nnz()
+    say(f"[8 route a] n={n2} solve_system: iterations {rep.niters} "
+        f"(executed {ran - 1} in whole chunks) reduction {red:.3e} true "
+        f"rel residual {tr:.3e} cond {rep.cond:.3f} | setup "
+        f"{rep.t_setup:.2f} s solve {rep.t_solve:.4f} s "
+        f"({rep.t_solve / it * 1e3:.3f} ms per counted iteration, "
+        f"{rep.t_solve / ran * 1e3:.3f} per executed cycle; wall "
+        f"{t_solve:.2f} s) nnz/iteration {nnz_iter} nnz/s "
+        f"{nnz_iter * it / rep.t_solve:.4e} | launches {counts} | per "
+        f"executed iteration: " + ", ".join(
+            f"{kk} {counts.get(kk, 0) / max(ran - 1, 1):.3f}"
+            for kk in K5_STEPS + ("vcycle",)))
+    if on_card:
+        prof = profile_busy(lambda: pcg_fused(fp, bk, tol=0.0, maxiter=4,
+                                              chunk=4), dev)
+        if prof is None:
+            say("[8 profile] not measured: the profiler saw no device time")
+        else:
+            rows_prof, busy, wall = prof
+            per_it = busy / 5        # 4 iterations + the start's cycle
+            say(f"[8 profile] route (a), 4 iterations: device busy "
+                f"{busy:.1f} us ({per_it:.1f} us per iteration, the start "
+                f"counted as one) of {wall * 1e6:.1f} us wall with the "
+                f"profiler on; idle share without it "
+                f"{1 - per_it * ran / (rep.t_solve * 1e6):.4f}")
+            say("[8 profile] device us by kernel (calls, total): "
+                + json.dumps([(kk, c, round(u, 1))
+                              for kk, c, u in rows_prof[:12]]))
+    plain_its = route_pair(fp, bk, vc, A, b, slots, n2, dev, rep.niters,
+                           plain=True)
+    check(abs(plain_its - rep.niters) <= 1,
+          f"route (a) {rep.niters} vs plain chunk {plain_its} iterations")
+    del fp, vc, bk, bm, z0
+
+    # the same pair at n=512 on phase 5's system
+    t0 = time.perf_counter()
+    fp5, slots5, nflat5 = setup_grid_fused_pcg(A512, (n512 + 1,) * 2, F=2,
+                                               params=drv, device=dev)
+    sync(dev)
+    say(f"[8 setup n={n512}] {time.perf_counter() - t0:.2f} s, "
+        f"{len(fp5.vc.spec.levels)} levels")
+    bk5 = scatter(b512, slots5, nflat5, dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res5 = pcg_fused(fp5, bk5, tol=1e-8, maxiter=500)
+    sync(dev)
+    t5 = time.perf_counter() - t0
+    ran5 = max(kernels.LAUNCHES["vcycle"], 1)
+    x5 = res5.x.double().cpu().numpy()[slots5]
+    tr5 = float(np.linalg.norm(b512 - A512.matvec(x5))
+                / np.linalg.norm(b512))
+    say(f"[8 route a n={n512}] iterations {res5.niters} (executed "
+        f"{ran5 - 1}) true rel residual {tr5:.3e} | {t5:.3f} s, "
+        f"{t5 / max(res5.niters, 1) * 1e3:.3f} ms per counted iteration, "
+        f"{t5 / ran5 * 1e3:.3f} per executed cycle | level visits per "
+        f"cycle {kernels.LAUNCHES['restrict'] / ran5:g}")
+    check(res5.converged, f"route (a) at n={n512} did not converge")
+    route_pair(fp5, bk5, fp5.vc, A512, b512, slots5, n512, dev,
+               res5.niters, plain=False, ms_a=t5 / max(res5.niters, 1))
+    del fp5, bk5
+
+    # ---- 9. route (c): NL-AMLI(2) --------------------------------------
+    res_c = {}
+    for pallas in (None, False):
+        kernels.reset_launches()
+        rep_c = solve_system(A, b, "metric_mono", sizes, params=nl_amli,
+                             tol=1e-6, maxiter=200, dtype=np.float32,
+                             grid=grid, pallas=pallas, device=dev)
+        counts = dict(kernels.LAUNCHES)
+        trc = float(np.linalg.norm(b - A.matvec(rep_c.x))
+                    / np.linalg.norm(b))
+        itc = max(rep_c.niters, 1)
+        res_c[pallas] = rep_c
+        say(f"[9 route c pallas={pallas}] n={n2} NL-AMLI(2): iterations "
+            f"{rep_c.niters} converged {rep_c.converged} true rel residual "
+            f"{trc:.3e} | setup {rep_c.t_setup:.2f} s solve "
+            f"{rep_c.t_solve:.3f} s ({rep_c.t_solve / itc * 1e3:.2f} "
+            f"ms/iteration) | per iteration: cheb_sweep "
+            f"{counts.get('cheb_sweep', 0) / itc:.1f}, K1 dia_residual "
+            f"{counts.get('dia_residual', 0) / itc:.1f}, K1 dia_spmv "
+            f"{counts.get('dia_spmv', 0) / itc:.1f}")
+        check(rep_c.route == "c" and rep_c.converged and trc < 1e-4,
+              f"route (c) pallas={pallas}: converged {rep_c.converged}, "
+              f"true rel residual {trc:.3e}")
+        if on_card and pallas is None:
+            for kname in ("cheb_sweep", "dia_residual", "dia_spmv"):
+                check(counts.get(kname, 0) > 0,
+                      f"route (c): kernel {kname} not launched")
+            k3["launches"] = cheb_counts = counts["cheb_sweep"]
+        if pallas is False:
+            check(counts.get("cheb_sweep", 0) == 0,
+                  "route (c) pallas=False launched K3")
+    check(abs(res_c[None].niters - res_c[False].niters) <= 2,
+          f"route (c) kernels {res_c[None].niters} vs plain "
+          f"{res_c[False].niters} iterations")
+    if on_card:
+        # phase 7's hierarchy is the one route (c) builds: profile three
+        # PCG iterations on it
+        Aop_c = grid_system(A, gslots, dtype=torch.float32, device=dev)
+        b_c = scatter(b, gslots, nd, dev)
+        kernels.reset_launches()
+        prof = profile_busy(lambda: pcg(Aop_c, b_c, M=prec.matvec,
+                                        tol=0.0, maxiter=3, chunk=3), dev)
+        per_cycle = kernels.LAUNCHES["cheb_sweep"] / 4
+        if prof is None:
+            say("[9 profile] not measured: the profiler saw no device time")
+        else:
+            rows_prof, busy, wall = prof
+            per_it = busy / 4      # 3 iterations + the start's M r0
+            ran_c = cheb_counts / max(per_cycle, 1)
+            idle = 1 - per_it * ran_c / (res_c[None].t_solve * 1e6)
+            say(f"[9 profile] route (c), 3 iterations: device busy "
+                f"{busy:.1f} us ({per_it:.1f} us per iteration, the start "
+                f"counted as one) of {wall * 1e6:.1f} us wall with the "
+                f"profiler on; {per_cycle:g} K3 calls per cycle, "
+                f"{ran_c:g} cycles executed in the solve; idle share "
+                f"without it {idle:.4f}")
+            say("[9 profile] device us by kernel (calls, total): "
+                + json.dumps([(kk, c, round(u, 1))
+                              for kk, c, u in rows_prof[:12]]))
+    del prec
+
+    # ---- 10. refine at n=512 -------------------------------------------
+    v4096 = replace(PRESETS["metric_schwarz"], dtype="float32",
+                    cycle_type="v", coarse_dof=4096)
+    rep_r = solve_system(A512, b512, "metric_mono",
+                         (A512.shape[0] // 2,) * 2, tol=1e-8, maxiter=200,
+                         grid=((n512 + 1,) * 2, 2), params=v4096,
+                         dtype=np.float32, refine=4, inner_tol=2e-5,
+                         device=dev)
+    say(f"[10 refine] n={n512} route {rep_r.route}: true rel residual "
+        f"{rep_r.r_norm:.3e} converged {rep_r.converged} pass_iters "
+        f"{'+'.join(map(str, rep_r.pass_iters))} (TPU record "
+        f"{'+'.join(map(str, TPU_REFINE_PASSES))}) | setup "
+        f"{rep_r.t_setup:.2f} s solve {rep_r.t_solve:.3f} s")
+    check(rep_r.converged and rep_r.r_norm <= 1e-8,
+          f"refine: true rel residual {rep_r.r_norm:.3e} > 1e-8")
+    if n512 == N:
+        check(len(rep_r.pass_iters) == len(TPU_REFINE_PASSES) and all(
+            abs(a - r) <= 3 for a, r in zip(rep_r.pass_iters,
+                                            TPU_REFINE_PASSES)),
+            f"refine passes {rep_r.pass_iters} vs TPU record "
+            f"{TPU_REFINE_PASSES}")
+
+    # ---- 11. the driver ------------------------------------------------
+    run_driver(dev, nrefs)
+
+
+def route_pair(fp, bk, vc, A, b, slots, n, dev, its_a, plain, ms_a=None):
+    """Route (b) on fp's hierarchy (K1 outer + K2 cycle per iteration) and,
+    with plain=True, pcg_fused over the plain chunk; returns the plain
+    chunk's iterations (or route (b)'s)."""
+    from tpuamg_torch.amg.grid_fused import (fused_operator, pcg_chunk_plain,
+                                             pcg_fused)
+    from tpuamg_torch.krylov import pcg
+    out = None
+    if plain:
+        run_kernel = fp.run_chunk
+        fp.run_chunk = lambda *a: pcg_chunk_plain(fp, *a)
+        t0 = time.perf_counter()
+        ref = pcg_fused(fp, bk, tol=1e-8, maxiter=500)
+        sync(dev)
+        tp = time.perf_counter() - t0
+        fp.run_chunk = run_kernel
+        out = ref.niters
+        say(f"[8 plain chunk n={n}] iterations {ref.niters} (route a "
+            f"{its_a}) | {tp / max(ref.niters, 1) * 1e3:.3f} ms/iteration")
+    from tpuamg_torch import kernels
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rb = pcg(fp.Q, bk, M=fused_operator(vc), tol=1e-8, maxiter=500)
+    sync(dev)
+    tb = time.perf_counter() - t0
+    ran = max(kernels.LAUNCHES["vcycle"], 1)     # executed, + z0's cycle
+    xb = rb.x.double().cpu().numpy()[slots]
+    trb = float(np.linalg.norm(b - A.matvec(xb)) / np.linalg.norm(b))
+    say(f"[8 route b n={n}] same hierarchy, launch per apply: iterations "
+        f"{rb.niters} (route a {its_a}; executed {ran - 1}) true rel "
+        f"residual {trb:.3e} | {tb / max(rb.niters, 1) * 1e3:.3f} ms per "
+        f"counted iteration, {tb / ran * 1e3:.3f} per executed cycle"
+        + (f" (route a {ms_a * 1e3:.3f} per counted iteration)" if ms_a
+           else ""))
+    check(rb.converged and abs(rb.niters - its_a) <= 2,
+          f"route (b) {rb.niters} vs route (a) {its_a} iterations at n={n}")
+    return out if plain else rb.niters
+
+
+def run_driver(dev, nrefs):
+    """Phase 11: the bidomain_2d driver in-process, in a temporary working
+    directory (results/ lands there, not in the repository)."""
+    import os
+    import tempfile
+    from tpuamg_torch import kernels
+    from tpuamg_torch.problems.bidomain_2d import PRECONDS, run
+    from tpuamg_torch.problems.driver import standard_parser
+    argv = ["-backend", "grid", "-dtype", "float32", "-nrefs", str(nrefs),
+            "-gamma", "1e6", "-precond", "metric_mono"]
+    args = standard_parser("hazmath", PRECONDS).parse_args(argv)
+    here = os.getcwd()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            tables = run(args, device=dev)
+        finally:
+            os.chdir(here)
+    say(f"[11 driver] python -m tpuamg_torch.problems.bidomain_2d "
+        f"{' '.join(argv)}: {time.perf_counter() - t0:.1f} s | launches "
+        f"{dict(kernels.LAUNCHES)}")
+    say("[11 driver] ksp rows " + json.dumps(
+        [[float(v) for v in row] for row in tables.table_ksp]))
+    say("[11 driver] error rows " + json.dumps(
+        [[float(v) for v in row] for row in tables.table_error]))
+    for row in tables.table_ksp:
+        check(0 < row[1] < 500 and np.isfinite(row[2]),
+              f"driver row {row}: not converged")
+    for row in tables.table_error[1:]:
+        check(0.9 <= row[3] <= 1.1 and 0.9 <= row[5] <= 1.1,
+              f"driver H1 rates {row[3]:.3f}, {row[5]:.3f} outside "
+              f"[0.9, 1.1]")
+    if dev.type == "cuda":
+        check(kernels.LAUNCHES["pcg_chunk"] > 0,
+              "driver: route (a) (K5) not taken")
+
+
+def chunk_work(fp, chunk):
+    """(bytes of every input read once + outputs written once, flops,
+    bytes the chunk streams) for `chunk` iterations of K5 + K2."""
+    n = fp.vc.nflat
+    q = fp.Q.planes.numel() * 4
+    cin, cflops, cstream = cycle_work(fp.vc)
+    # inputs: Q, the cycle's planes and T, x r p z in; x r p z out
+    nbytes = q + (cin - 4 * n * 2) + 8 * 4 * n
+    flops = chunk * (2 * fp.Q.planes.numel() + 14 * n + cflops)
+    # rz: r, z; pq: z, p (x nd reads, mostly cached), Q, p_new, q;
+    # xr: x, r, p, q read, x, r written
+    stream = chunk * (q + 4 * n * 2 + 4 * n * 4 + 4 * n * 6 + cstream) \
+        + 8 * n
+    return nbytes, flops, stream
+
+
+def profile_busy(fn, dev):
+    """Device time by kernel over fn(), from torch.profiler (CUPTI); None
+    where the profiler records no device time.  Returns (rows [(name,
+    calls, total us)] by total, busy us, wall s)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    agg = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        c, us = agg.get(ev.name, (0, 0.0))
+        agg[ev.name] = (c + 1, us + ev.time_range.elapsed_us())
+    rows = sorted(((k[:60], c, us) for k, (c, us) in agg.items()),
+                  key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows)
+    return (rows, busy, wall) if busy > 0 else None
 
 
 def cycle_work(vc):

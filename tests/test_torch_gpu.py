@@ -93,3 +93,223 @@ def test_cycle_kernels_match_plain(storage, cycle):
     for name in ("cheb_apply", "restrict", "prolong", "coarse_gemv",
                  "coarse_reduce", "dia_residual"):
         assert kernels.LAUNCHES[name] > 0, name
+
+
+# ---------------------------------------------------------------------------
+# K3: the Chebyshev sweep
+# ---------------------------------------------------------------------------
+
+def _cheb_inputs(dev, storage, n=98_306, F=2, seed=3):
+    """A diagonally dominant random DIA over a 2D-grid-like offset set and
+    its (2F-1)-offset block inverse, as the grid path builds them."""
+    from tpuamg_torch.sparse.dia_kernels import _cheb_coefs
+    rng = np.random.default_rng(seed)
+    offsA = (-2 * 257 - 1, -2 * 257, -2, -1, 0, 1, 2, 2 * 257, 2 * 257 + 1)
+    planes = rng.standard_normal((len(offsA), n)) * 0.1
+    planes[offsA.index(0)] = 2.0 + rng.random(n)
+    offsC = tuple(range(-(F - 1), F))
+    cplanes = rng.standard_normal((len(offsC), n)) * 0.05
+    cplanes[offsC.index(0)] += 0.5
+    theta, coefs = _cheb_coefs(2.2, 0.275, 3)
+    x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32)
+    b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32)
+
+    def dev_planes(p):
+        return torch.as_tensor(p, dtype=torch.float32).to(storage).to(dev)
+    return (offsA, dev_planes(planes), offsC, dev_planes(cplanes),
+            x.to(dev), b.to(dev), theta, coefs)
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("want_r", [False, True])
+def test_cheb_sweep_kernel_matches_plain(storage, want_r):
+    from tpuamg_torch import kernels
+    from tpuamg_torch.sparse.dia_kernels import cheb_sweep, cheb_sweep_plain
+    dev = _card()
+    offsA, pA, offsC, pC, x, b, theta, coefs = _cheb_inputs(dev, storage)
+    before = kernels.LAUNCHES["cheb_sweep"]
+    for iters in (1, 2):
+        xk, rk = cheb_sweep(offsA, pA, offsC, pC, x, b, theta, coefs, 3,
+                            iters, want_r)
+        torch.cuda.synchronize()
+        xp, rp = cheb_sweep_plain(offsA, pA, offsC, pC, x, b, theta, coefs,
+                                  3, iters, want_r)
+        err = float(torch.linalg.vector_norm(xk - xp)
+                    / torch.linalg.vector_norm(xp))
+        assert err < 1e-5, (iters, err)
+        if want_r:
+            err_r = float(torch.linalg.vector_norm(rk - rp)
+                          / torch.linalg.vector_norm(rp))
+            assert err_r < 1e-5, (iters, err_r)
+        else:
+            assert rk is None
+    # one launch count per smoother application, x left unchanged
+    assert kernels.LAUNCHES["cheb_sweep"] == before + 2
+    assert torch.equal(x, _cheb_inputs(dev, storage)[4])
+
+
+def test_fused_cheb_smoother_kernel_on_grid_level():
+    """Level 0 of the route-(c) hierarchy (setup_grid, f32): the kernel
+    classes' smooth and smooth_residual against their plain versions."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg.grid import setup_grid
+    from tpuamg_torch.config import PRESETS
+    from tpuamg_torch.fem import mms
+    from tpuamg_torch.problems.bidomain import Params, get_mesh, get_system
+    from tpuamg_torch.sparse.dia_kernels import FusedChebSmoother, \
+        cheb_sweep_plain, _cheb_coefs
+    dev = _card()
+    n = 64
+    p = Params(2.0, 3.0, 1e6)
+    A, _, _, _ = get_system(get_mesh(n, 2), mms.setup_bidomain_mms(p, 2), p)
+    prec, slots, nd = setup_grid(A, (n + 1, n + 1), F=2,
+                                 params=PRESETS["metric_schwarz"],
+                                 dtype=torch.float32, device=dev)
+    L0 = prec.levels[0]
+    sm = L0.smoother
+    assert isinstance(sm, FusedChebSmoother)
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.standard_normal(nd), dtype=torch.float32
+                        ).to(dev)
+    b = torch.as_tensor(rng.standard_normal(nd), dtype=torch.float32
+                        ).to(dev)
+    before = kernels.LAUNCHES["cheb_sweep"]
+    xs, r = sm.smooth_residual(L0.A, x, b)
+    x2 = sm.smooth(L0.A, x, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cheb_sweep"] == before + 2
+    theta, coefs = _cheb_coefs(sm.lmax, sm.lmin, sm.degree, sm.kind)
+    xp, rp = cheb_sweep_plain(sm.offsA, sm.planesA, sm.offsC, sm.planesC,
+                              x, b, theta, coefs, sm.degree, 1, True)
+    for got, ref in ((xs, xp), (x2, xp), (r, rp)):
+        err = float(torch.linalg.vector_norm(got - ref)
+                    / torch.linalg.vector_norm(ref))
+        assert err < 1e-5, err
+
+
+# ---------------------------------------------------------------------------
+# K5: the PCG chunk
+# ---------------------------------------------------------------------------
+
+def _pcg_setup(dev, cycle, n=32, gamma=1e6):
+    from dataclasses import replace
+    from tpuamg_torch.amg.grid_fused import setup_grid_fused_pcg
+    from tpuamg_torch.config import PRESETS
+    from tpuamg_torch.fem import mms
+    from tpuamg_torch.problems.bidomain import Params, get_mesh, get_system
+    p = Params(2.0, 3.0, gamma)
+    A, b, _, _ = get_system(get_mesh(n, 2), mms.setup_bidomain_mms(p, 2), p)
+    prm = replace(PRESETS["metric_schwarz"], dtype="float32",
+                  cycle_type=cycle)
+    fp, slots, nflat = setup_grid_fused_pcg(A, (n + 1, n + 1), F=2,
+                                            params=prm, device=dev)
+    bk = torch.zeros(nflat, dtype=torch.float32)
+    bk[torch.as_tensor(slots)] = torch.as_tensor(b, dtype=torch.float32)
+    return fp, bk.to(dev)
+
+
+@pytest.mark.parametrize("cycle", ["v", "w"])
+def test_pcg_chunk_kernel_matches_plain(cycle):
+    """The first chunk (rz_prev = -1: beta = 0) and a second one that
+    carries rz: stats rows and x against the plain chunk."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg.grid_fused import pcg_chunk, pcg_chunk_plain
+    dev = _card()
+    fp, bk = _pcg_setup(dev, cycle)
+    vc = fp.vc
+    bm = bk * vc.mask_flat
+    z0 = vc.matvec(bm)
+
+    def start():
+        return (torch.zeros_like(bm), bm.clone(), torch.zeros_like(bm),
+                z0.clone(), torch.full((1,), -1.0, device=dev))
+
+    chunk = 4
+    kernels.reset_launches()
+    x, r, p, z, st = pcg_chunk(fp, *start(), chunk)
+    st = st.clone()
+    x, r, p, z = (t.clone() for t in (x, r, p, z))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pcg_rz"] == chunk + 1
+    assert kernels.LAUNCHES["pcg_pq"] == kernels.LAUNCHES["pcg_xr"] == chunk
+    assert kernels.LAUNCHES["pcg_finish"] == 1
+    assert kernels.LAUNCHES["vcycle"] == chunk
+    xp, rp, pp, zp, stp = pcg_chunk_plain(fp, *start(), chunk)
+    stp = stp.clone()
+    xp, rp, pp, zp = (t.clone() for t in (xp, rp, pp, zp))
+    # rows 0-1 (alpha, beta, sqrt|rz|, ||r||, ||x||): f32 relative error
+    # 1e-5 over the rows, 1e-4 per entry.  The two chunks run different
+    # f32 sum orders (K1/K2 against the plain SpMV and cycle), which the
+    # cancellation in r = r - alpha q amplifies to ~1e-5 per entry at
+    # gamma 1e6
+    rows = st[:2, :5].double().cpu().numpy()
+    rows_p = stp[:2, :5].double().cpu().numpy()
+    assert np.linalg.norm(rows - rows_p) <= 1e-5 * np.linalg.norm(rows_p)
+    np.testing.assert_allclose(rows, rows_p, rtol=1e-4)
+    # later iterations drift apart by that noise, as the JAX package's
+    # fused and unfused PCG do (tests/test_grid_fused_pcg.py: 5e-2)
+    np.testing.assert_allclose(st[chunk, :2].double().cpu().numpy(),
+                               stp[chunk, :2].double().cpu().numpy(),
+                               rtol=5e-2)
+    err = float(torch.linalg.vector_norm(x - xp)
+                / torch.linalg.vector_norm(xp))
+    assert err < 1e-3, err
+    # a second chunk carries rz across: both continue from the kernel's
+    # state
+    carry = st[chunk, 1:2].clone()
+    x2, _, _, _, st2 = pcg_chunk(fp, x.clone(), r.clone(), p.clone(),
+                                 z.clone(), carry, chunk)
+    st2 = st2.clone()
+    _, _, _, _, st2p = pcg_chunk_plain(fp, x.clone(), r.clone(), p.clone(),
+                                       z.clone(), carry, chunk)
+    np.testing.assert_allclose(st2[:2, :5].double().cpu().numpy(),
+                               st2p[:2, :5].double().cpu().numpy(),
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("cycle", ["v", "w"])
+def test_pcg_fused_kernel_crosses_tolerance_mid_chunk(cycle):
+    """pcg_fused through K5 against the same host loop over the plain
+    chunk: the history is cut at the first crossing, inside a chunk."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg.grid_fused import pcg_fused, pcg_chunk_plain
+    dev = _card()
+    fp, bk = _pcg_setup(dev, cycle)
+    run_kernel = fp.run_chunk
+    fp.run_chunk = lambda *a: pcg_chunk_plain(fp, *a)
+    probe = pcg_fused(fp, bk, tol=2e-5, maxiter=60, chunk=60)
+    # a chunk length that does not divide the iteration count
+    chunk = next(c for c in (7, 6, 5, 4, 3) if probe.niters % c)
+    ref = pcg_fused(fp, bk, tol=2e-5, maxiter=60, chunk=chunk)
+    fp.run_chunk = run_kernel
+    kernels.reset_launches()
+    got = pcg_fused(fp, bk, tol=2e-5, maxiter=60, chunk=chunk)
+    torch.cuda.synchronize()
+    assert got.converged and ref.converged
+    assert abs(got.niters - ref.niters) <= 1
+    n_chunks = kernels.LAUNCHES["pcg_chunk"]
+    assert n_chunks == -(-got.niters // chunk)
+    assert kernels.LAUNCHES["pcg_pq"] == chunk * n_chunks
+    assert kernels.LAUNCHES["pcg_rz"] == (chunk + 1) * n_chunks
+    np.testing.assert_allclose(got.residuals[:2], ref.residuals[:2],
+                               rtol=1e-4)
+    np.testing.assert_allclose(got.alphas[:2], ref.alphas[:2], rtol=1e-4)
+
+
+def test_pcg_chunk_kernel_is_deterministic():
+    """Fixed-order reductions: the same chunk from the same state gives
+    the same bits."""
+    from tpuamg_torch.amg.grid_fused import pcg_chunk
+    dev = _card()
+    fp, bk = _pcg_setup(dev, "w")
+    bm = bk * fp.vc.mask_flat
+    z0 = fp.vc.matvec(bm)
+    outs = []
+    for _ in range(2):
+        x, r, p, z, st = pcg_chunk(
+            fp, torch.zeros_like(bm), bm.clone(), torch.zeros_like(bm),
+            z0.clone(), torch.full((1,), -1.0, device=dev), 5)
+        outs.append((x.clone(), st.clone()))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])

@@ -16,6 +16,10 @@ import tpuamg_torch.kernels, tpuamg_torch.state
 import tpuamg_torch.sparse.dia, tpuamg_torch.sparse.dia_kernels
 import tpuamg_torch.amg.grid_fused, tpuamg_torch.krylov.cg
 import tpuamg_torch.problems.bidomain, tpuamg_torch.fem.mms
+import tpuamg_torch.problems.solve, tpuamg_torch.problems.bidomain_2d
+import tpuamg_torch.problems.driver, tpuamg_torch.amg.grid
+import tpuamg_torch.amg.hierarchy, tpuamg_torch.amg.structured
+import tpuamg_torch.io_utils, tpuamg_torch.fem.error
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'tpuamg'))
 print('BAD', bad)
@@ -37,6 +41,8 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
     from tpuamg_torch.sparse import HostCSR
     from tpuamg_torch.sparse.dia_kernels import KernelDIA
     from tpuamg_torch.amg.grid_fused import setup_grid_fused
+    from tpuamg_torch.amg.grid import setup_grid
+    from tpuamg_torch.problems.solve import solve_system
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     A = HostCSR.from_coo(np.arange(4), np.arange(4), np.ones(4), (4, 4))
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -45,4 +51,8 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
         KernelDIA.from_host(A)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         setup_grid_fused(A, (2, 2), F=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        setup_grid(A, (2, 2), F=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_system(A, np.ones(4), "metric_mono", (4,), grid=((2, 2), 1))
     assert KernelDIA.from_host(A, device="cpu").planes.device.type == "cpu"

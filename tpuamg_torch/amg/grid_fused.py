@@ -19,6 +19,13 @@ csrc/dia.cu for the t-passes and residuals, K2's pieces in
 csrc/vcycle.cu for the Chebyshev C-apply, restriction, prolongation and
 coarse GEMV); with CPU tensors the same sequence runs the plain torch
 versions defined here (``vcycle_plain`` runs them on any device).
+
+Around the cycle: ``FusedPCG`` / ``pcg_fused`` run PCG in chunks of
+iterations with no host read inside a chunk (kernel K5, csrc/pcg.cu, with
+K2's cycle as the preconditioner; ``pcg_chunk_plain`` is its plain
+version), and ``setup_grid_fused(reference=True)`` also returns the f64
+``MGPreconditioner`` of the same padded hierarchy, the step-by-step
+reference of both.
 """
 from __future__ import annotations
 
@@ -33,7 +40,10 @@ from ..kernels import LANES
 from ..sparse import HostCSR
 from ..sparse.dia_kernels import (KernelDIA, _cheb_coefs, blockinv_dia,
                                   dia_spmv, dia_spmv_plain)
-from .grid import _grid_coarse, _lmax_blockinv
+from ..sparse.dia import DIA
+from .grid import _grid_coarse, _lmax_blockinv, _node_blocks
+from .hierarchy import MGPreconditioner
+from .structured import BlockChebyshevSmoother
 
 
 def _round_up(x, m):
@@ -129,20 +139,6 @@ def _pad_lane_axis(A: HostCSR, mask, dims_cur, dx_new, F):
     m2 = np.zeros(n_new)
     m2[slots] = mask
     return A2, m2
-
-
-def _node_blocks(A: HostCSR, F):
-    """Inverses of the F x F node blocks (zero diagonals replaced by 1)."""
-    n = A.shape[0]
-    ng = n // F
-    r, c, v = A.to_coo()
-    inblk = (r // F) == (c // F)
-    blocks = np.zeros((ng, F, F))
-    blocks[r[inblk] // F, r[inblk] % F, c[inblk] % F] = v[inblk]
-    idx = np.arange(F)
-    diag = blocks[:, idx, idx]
-    blocks[:, idx, idx] = np.where(diag == 0, 1.0, diag)
-    return np.linalg.inv(blocks)
 
 
 @dataclass(frozen=True)
@@ -474,18 +470,61 @@ def fused_operator(vc: FusedVCycle):
     return vc.matvec
 
 
+class _PadGridLevel:
+    """Reference level whose transfers re-pad the lane axis to the next
+    level's even-padded dims, mirroring the fused cycle's layout chain.
+    Built only by setup_grid_fused(reference=True)."""
+
+    def __init__(self, A, smoother, mask, dims, F, cdims_p):
+        self.A = A
+        self.smoother = smoother
+        self.mask = mask
+        self.dims = tuple(dims)
+        self.F = F
+        self.cdims_p = tuple(cdims_p)
+        self.nc = int(np.prod(self.cdims_p)) * F
+
+    def restrict(self, r):
+        g = (r * self.mask).reshape(self.dims + (self.F,))
+        for ax in range(len(self.dims)):
+            d2 = self.dims[ax] // 2
+            shape = g.shape[:ax] + (d2, 2) + g.shape[ax + 1:]
+            g = g.reshape(shape).sum(dim=ax + 1)
+        pad = self.cdims_p[-1] - g.shape[-2]
+        if pad:
+            shape = list(g.shape)
+            shape[-2] = pad
+            g = torch.cat([g, g.new_zeros(shape)], dim=-2)
+        return g.reshape(-1)
+
+    def prolong(self, ec):
+        g = ec.reshape(self.cdims_p + (self.F,))
+        cd_last = self.dims[-1] // 2
+        if self.cdims_p[-1] > cd_last:
+            g = g.narrow(len(self.dims) - 1, 0, cd_last)
+        for ax in range(len(self.dims)):
+            g = g.repeat_interleave(2, dim=ax)
+        return g.reshape(-1) * self.mask
+
+
 # ---------------------------------------------------------------------------
 # Host-side setup
 # ---------------------------------------------------------------------------
 
-def _coarse_inverse(A: HostCSR, kslots_c, nc, rows_c, sdtype, device):
+def _coarse_inverse(A: HostCSR, kslots_c, nc, rows_c, sdtype, device,
+                    inv_can=None):
     """Dense coarse inverse in float32 on the device, embedded into the
     kernel-flat coarse layout (identity on pad dofs) and transposed per
-    coarse row block: T[R, m, l] = inv[R*128 + l, m], stored in sdtype."""
+    coarse row block: T[R, m, l] = inv[R*128 + l, m], stored in sdtype.
+    inv_can: a host inverse to embed instead of the device LU."""
     f32 = dict(dtype=torch.float32, device=device)
     ncan = A.shape[0]
     inv_k = torch.eye(nc, **f32)
-    if ncan:
+    if inv_can is not None:
+        ks = torch.as_tensor(kslots_c, device=device)
+        inv_k[ks[:, None], ks[None, :]] = torch.as_tensor(
+            inv_can, dtype=torch.float32).to(device)
+    elif ncan:
         rr, cc, vv = A.to_coo()
         Ad = torch.zeros((ncan, ncan), **f32)
         Ad[torch.as_tensor(rr, device=device),
@@ -504,7 +543,7 @@ def _to_device(a, dtype, device):
 def setup_grid_fused(A_host: HostCSR, dims, F=1, mask=None,
                      params: AMGParameters = AMGParameters(),
                      cheb_degree=3, cheb_ratio=8.0, cheb_kind=1,
-                     storage_dtype=None, device=None):
+                     storage_dtype=None, device=None, reference=False):
     """Build the fused hierarchy.
 
     A_host in field-major order ([u1-block; u2-block]) on `dims` grid
@@ -512,6 +551,11 @@ def setup_grid_fused(A_host: HostCSR, dims, F=1, mask=None,
     planes and of T (None = float32).  device: None = the CUDA card.
     Returns (FusedVCycle, slots, nflat): slots maps original dof -> kernel
     flat index (RHS scatter + solution gather).
+
+    reference=True also returns the f64 ``MGPreconditioner`` of the same
+    padded canonical hierarchy and the canonical slots: (vc, slots, nflat,
+    ref, slots_can).  T then embeds the host f64 coarse inverse that ref
+    uses, not the device LU.
 
     Raises ValueError when the problem has no level to smooth or the cycle
     is not a V/W cycle with maxit=1."""
@@ -544,6 +588,7 @@ def setup_grid_fused(A_host: HostCSR, dims, F=1, mask=None,
     level_nnz = []
     kernel_slots0 = None
     mask_flat0 = None
+    ref_levels = []
     lvl = 0
     while (lvl < len(sched) - 1
            and mask_np.sum() > params.coarse_dof):
@@ -580,6 +625,15 @@ def setup_grid_fused(A_host: HostCSR, dims, F=1, mask=None,
         if lvl == 0:
             kernel_slots0 = kslots[slots_can]
             mask_flat0 = _to_device(mk, torch.float32, dev)
+        if reference:
+            f64 = torch.float64
+            ref_levels.append(_PadGridLevel(
+                DIA.from_host(A, dtype=f64, device=dev),
+                BlockChebyshevSmoother(
+                    _to_device(blockinv, f64, dev),
+                    _to_device(mask_np, f64, dev), 1.1 * lmax,
+                    1.1 * lmax / cheb_ratio, cheb_degree, kind=cheb_kind),
+                _to_device(mask_np, f64, dev), dims_p, F, sched[lvl + 1]))
         A, mask_np, _ = _grid_coarse(A, mask_np, dims_p, F)
         # re-pad the lane axis to the schedule's next padded dims
         cdims_raw = tuple(d // 2 for d in dims_p[:-1]) + (dims_p[-1] // 2,)
@@ -598,10 +652,22 @@ def setup_grid_fused(A_host: HostCSR, dims, F=1, mask=None,
     spec = CycleSpec(levels=tuple(levels_spec), F=int(F), Kc=Kc,
                      rows_c=rows_c, nc=nc, cycle=params.cycle_type,
                      max_w_work=params.max_w_work)
+    inv_can = None
+    if reference:
+        inv_can = np.linalg.inv(A.toarray()) if A.shape[0] else \
+            np.zeros((0, 0))
     T = _coarse_inverse(A, _kernel_slots(dims_c, F, Kc), nc, rows_c,
-                        sdtype, dev)
+                        sdtype, dev, inv_can)
     vc = FusedVCycle(spec, A_planes, C_planes, M_planes, T, mask_flat0,
                      level_nnz=level_nnz, coarse_n=A.shape[0])
+    if reference:
+        ref = MGPreconditioner(
+            tuple(ref_levels), _to_device(inv_can, torch.float64, dev),
+            cycle=params.cycle_type, maxit=1,
+            presmooth=params.presmooth_iter,
+            postsmooth=params.postsmooth_iter,
+            max_w_work=params.max_w_work)
+        return vc, kernel_slots0, vc.nflat, ref, slots_can
     return vc, kernel_slots0, vc.nflat
 
 
@@ -611,3 +677,250 @@ def grid_system_fused(A_host: HostCSR, slots, nflat, dtype=torch.float32,
     r, c, v = A_host.to_coo()
     Ak = HostCSR.from_coo(slots[r], slots[c], v, (nflat, nflat))
     return KernelDIA.from_host(Ak, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Chunked fused PCG: kernel K5 (csrc/pcg.cu) and its plain version
+# ---------------------------------------------------------------------------
+#
+# A chunk is `chunk` complete PCG iterations with no host read inside:
+#   rz = r.z;  beta = rz / rz_prev (0 while rz_prev <= 0);
+#   p = z + beta p;  q = Q p;  alpha = rz / (p.q + tiny);
+#   x += alpha p;  r -= alpha q;  z = M r  (the whole K2 cycle, r its rhs)
+# with x0 = 0 and z0 = M(b mask) computed before the first chunk.  The
+# stats rows follow the JAX package's layout: row it = (alpha, beta,
+# sqrt|rz|, ||r||, ||x||, 0...) with row it's beta and sqrt|rz| those of
+# the NEXT r.z (the last row's from one more r.z after the loop), and
+# row chunk = (rz_T, rz_last), which carries rz across chunks.
+
+_TINY32 = 1e-30
+STATS_LANES = LANES
+MAX_PARTS = 512     # per-block partial sums of a K5 reduction (pcg.cu)
+
+
+def pcg_chunk_plain(fp: "FusedPCG", x, r, p, z, rz_prev, chunk):
+    """One chunk in torch ops on the kernel-flat layout (any device).
+    x and r are updated in place; returns (x, r, p, z, stats)."""
+    vc = fp.vc
+    Q = fp.Q
+    stats = torch.zeros((chunk + 1, STATS_LANES), dtype=torch.float32,
+                        device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    rz_last = rz_prev.reshape(())
+    for it in range(chunk):
+        rz = torch.dot(r, z)
+        beta = torch.where(rz_last > 0, rz / (rz_last + _TINY32), zero)
+        if it:
+            stats[it - 1, 1] = beta
+            stats[it - 1, 2] = torch.sqrt(rz.abs())
+        p = z + beta * p
+        q = dia_spmv_plain(Q.offsets, Q.planes, p)
+        alpha = rz / (torch.dot(p, q) + _TINY32)
+        x.add_(alpha * p)
+        r.sub_(alpha * q)
+        stats[it, 0] = alpha
+        stats[it, 3] = torch.linalg.vector_norm(r)
+        stats[it, 4] = torch.linalg.vector_norm(x)
+        z = vcycle_plain(vc, r)
+        rz_last = rz
+    rz_t = torch.dot(r, z)
+    stats[chunk - 1, 1] = torch.where(rz_last > 0,
+                                      rz_t / (rz_last + _TINY32), zero)
+    stats[chunk - 1, 2] = torch.sqrt(rz_t.abs())
+    stats[chunk, 0] = rz_t
+    stats[chunk, 1] = rz_last
+    return x, r, p, z, stats
+
+
+class _PCGWork:
+    """Device scratch of the K5 chunk: two p buffers (p is never updated
+    in place: blocks read it at neighbouring offsets), q, the per-block
+    partial sums, the rz history and the stats rows."""
+
+    def __init__(self, n, chunk, device):
+        f32 = dict(dtype=torch.float32, device=device)
+        self.p = (torch.zeros(n, **f32), torch.zeros(n, **f32))
+        self.q = torch.zeros(n, **f32)
+        self.rz_parts = torch.zeros(MAX_PARTS, **f32)
+        self.pq_parts = torch.zeros(MAX_PARTS, **f32)
+        self.norm_parts = torch.zeros(2 * MAX_PARTS, **f32)
+        self.rzbuf = torch.zeros(chunk + 1, **f32)
+        self.stats = torch.zeros((chunk + 1, STATS_LANES), **f32)
+        self.chunk = chunk
+
+
+def _pcg_chunk_cuda(fp: "FusedPCG", x, r, p, z, rz_prev, chunk):
+    vc = fp.vc
+    Q = fp.Q
+    n = vc.nflat
+    dev = vc.device
+    for name, t in (("x", x), ("r", r), ("p", p), ("z", z)):
+        kernels.require(t, name, dtype=torch.float32, numel=n, device=dev)
+    kernels.require(rz_prev, "rz_prev", dtype=torch.float32, numel=1,
+                    device=dev)
+    kernels.require(Q.planes, "Q planes", dtype=torch.float32,
+                    numel=len(Q.offsets) * n, device=dev)
+    if fp._work is None or fp._work.chunk != chunk:
+        fp._work = _PCGWork(n, chunk, dev)
+    w = fp._work
+    zb = vc._x[0]                    # the cycle writes z here
+    if z.data_ptr() != zb.data_ptr():
+        zb.copy_(z)
+    if p.data_ptr() == w.p[1].data_ptr():
+        cur = 1
+    else:
+        cur = 0
+        if p.data_ptr() != w.p[0].data_ptr():
+            w.p[0].copy_(p)
+    w.rzbuf[:1].copy_(rz_prev.reshape(1))
+    w.stats.zero_()
+    lib = kernels.lib()
+    offs = kernels.int_array(tuple(Q.offsets))
+    stream = kernels.stream_ptr()
+
+    def rz_pass():
+        kernels.check(lib.tpuamg_pcg_rz(r.data_ptr(), zb.data_ptr(),
+                                        w.rz_parts.data_ptr(), n, stream),
+                      "pcg_rz")
+        kernels.LAUNCHES["pcg_rz"] += 1
+
+    for it in range(chunk):
+        p_old, p_new = w.p[cur], w.p[1 - cur]
+        rz_pass()
+        kernels.check(lib.tpuamg_pcg_pq(
+            Q.planes.data_ptr(), len(Q.offsets), offs, zb.data_ptr(),
+            p_old.data_ptr(), p_new.data_ptr(), w.q.data_ptr(), n,
+            w.rz_parts.data_ptr(), w.pq_parts.data_ptr(),
+            w.norm_parts.data_ptr(), w.rzbuf.data_ptr(), it,
+            w.stats.data_ptr(), stream), "pcg_pq")
+        kernels.LAUNCHES["pcg_pq"] += 1
+        kernels.check(lib.tpuamg_pcg_xr(
+            x.data_ptr(), r.data_ptr(), p_new.data_ptr(), w.q.data_ptr(),
+            n, w.pq_parts.data_ptr(), w.rzbuf.data_ptr(), it,
+            w.norm_parts.data_ptr(), w.stats.data_ptr(), stream), "pcg_xr")
+        kernels.LAUNCHES["pcg_xr"] += 1
+        vcycle(vc, r)
+        cur = 1 - cur
+    rz_pass()
+    kernels.check(lib.tpuamg_pcg_finish(
+        w.rz_parts.data_ptr(), w.norm_parts.data_ptr(), n,
+        w.rzbuf.data_ptr(), chunk, w.stats.data_ptr(), stream),
+        "pcg_finish")
+    kernels.LAUNCHES["pcg_finish"] += 1
+    kernels.LAUNCHES["pcg_chunk"] += 1
+    return x, r, w.p[cur], zb, w.stats
+
+
+def pcg_chunk(fp: "FusedPCG", x, r, p, z, rz_prev, chunk):
+    """One chunk: kernel K5 with K2's cycle on CUDA tensors, the plain
+    version on CPU tensors.  x and r are updated in place; p and z may
+    come back in the runner's own buffers (valid until its next chunk).
+    Returns (x, r, p, z, stats (chunk + 1, 128) float32 on the device)."""
+    if x.device.type == "cpu":
+        return pcg_chunk_plain(fp, x, r, p, z, rz_prev, chunk)
+    return _pcg_chunk_cuda(fp, x, r, p, z, rz_prev, chunk)
+
+
+class FusedPCG:
+    """Chunked PCG runner on the fused hierarchy: `chunk` iterations per
+    ``run_chunk`` with no host read inside.
+
+    Wraps a FusedVCycle (the preconditioner) and the outer operator Q as
+    a KernelDIA over the same kernel-flat layout, whose planes stay
+    float32: the CG matvec defines the true residual and cannot take
+    storage rounding, unlike the preconditioner."""
+
+    def __init__(self, vc: FusedVCycle, Q: KernelDIA):
+        if Q.planes.dtype != torch.float32:
+            raise TypeError("FusedPCG: the outer operator must be float32")
+        if Q.shape[0] != vc.nflat or Q.planes.device != vc.device:
+            raise ValueError("FusedPCG: Q does not match the cycle's "
+                             "layout or device")
+        self.vc = vc
+        self.Q = Q
+        self._work = None
+
+    def run_chunk(self, x, r, p, z, rz_prev, chunk):
+        return pcg_chunk(self, x, r, p, z, rz_prev, int(chunk))
+
+
+def pcg_fused(fp: FusedPCG, b, tol=1e-8, maxiter=500, chunk=32,
+              stop_type=2, callback=None):
+    """PCG with the chunked runner; mirrors krylov.cg.pcg's host loop, its
+    diagnostics contract (CGResult) and stop types.  b and the returned x
+    are in the kernel-flat layout (length vc.nflat).  The host reads the
+    stats rows once per chunk and cuts the history at the first crossing
+    or non-finite residual; x is the iterate at the end of that chunk."""
+    from ..krylov.cg import CGResult, _TINY
+    vc = fp.vc
+    b = b.to(torch.float32)
+    bm = b * vc.mask_flat
+    maxiter = int(maxiter)
+    chunk = max(1, min(int(chunk), maxiter))
+    z = vcycle(vc, bm)                     # z0 = M r0, r0 = b (x0 = 0)
+    r = bm.clone()
+    x = torch.zeros_like(r)
+    p = torch.zeros_like(r)
+    init = torch.stack([torch.dot(bm, z), torch.linalg.vector_norm(bm),
+                        torch.linalg.vector_norm(b)]).double().cpu().numpy()
+    rz, rnorm0 = float(init[0]), float(init[1])
+    res0 = float(np.sqrt(max(rz, 0.0)))
+    res_hist = [res0]
+    true_hist = [rnorm0]
+    norm_b = float(init[2]) if stop_type == 1 else 0.0
+    alphas, betas = [], []
+    k = 0
+    if stop_type == 1:
+        converged = rnorm0 <= tol * norm_b or norm_b == 0.0
+    else:
+        converged = res0 == 0.0
+    rz_prev = torch.full((1,), -1.0, dtype=torch.float32, device=b.device)
+
+    def _crossed(o):
+        if stop_type == 1:
+            return o[:, 3] <= tol * norm_b
+        if stop_type == 3:
+            return o[:, 3] <= tol * np.maximum(o[:, 4], _TINY)
+        return o[:, 2] <= tol * res0
+
+    while not converged and k < maxiter:
+        x, r, p, z, stats = fp.run_chunk(x, r, p, z, rz_prev, chunk)
+        o = stats.double().cpu().numpy()   # the one host read per chunk
+        rz_prev = stats[chunk, 1:2].clone()
+        o = o[:chunk, :5]
+        cross = _crossed(o)
+        hit = np.flatnonzero(cross | ~np.isfinite(o[:, 2]))
+        take = int(hit[0]) + 1 if len(hit) else chunk
+        take = min(take, maxiter - k)
+        alphas.extend(o[:take, 0].tolist())
+        betas.extend(o[:take, 1].tolist())
+        res_hist.extend(o[:take, 2].tolist())
+        true_hist.extend(o[:take, 3].tolist())
+        k += take
+        converged = len(hit) > 0 and np.isfinite(o[hit[0], 2]) \
+            and bool(cross[hit[0]])
+        if len(hit) and not converged:
+            break
+    res = np.asarray(res_hist)
+    true = np.asarray(true_hist)
+    if callback is not None:
+        for i in range(1, k + 1):
+            callback(i, None, true[i])
+    return CGResult(x=x, niters=k, converged=bool(converged),
+                    residuals=res, true_residuals=true,
+                    alphas=np.asarray(alphas), betas=np.asarray(betas))
+
+
+def setup_grid_fused_pcg(A_host: HostCSR, dims, F=1, mask=None,
+                         params: AMGParameters = AMGParameters(),
+                         cheb_degree=3, cheb_ratio=8.0, cheb_kind=1,
+                         storage_dtype=None, device=None):
+    """FusedVCycle + the float32 outer operator -> (FusedPCG, slots,
+    nflat).  Raises ValueError where setup_grid_fused does."""
+    vc, slots, nflat = setup_grid_fused(
+        A_host, dims, F=F, mask=mask, params=params,
+        cheb_degree=cheb_degree, cheb_ratio=cheb_ratio,
+        cheb_kind=cheb_kind, storage_dtype=storage_dtype, device=device)
+    Q = grid_system_fused(A_host, slots, nflat, dtype=torch.float32,
+                          device=vc.device)
+    return FusedPCG(vc, Q), slots, nflat

@@ -6,4 +6,5 @@ from .mesh import (Mesh, unit_square_mesh, unit_cube_mesh,
 from .assembly import (stiffness_matrix, mass_matrix, load_vector,
                        facet_load_vector, DirichletBC,
                        apply_bc_monolithic, interpolate)
+from .error import errornorm_p1
 from . import mms

@@ -52,6 +52,13 @@ _SIGNATURES = {
     "tpuamg_prolong": (_P, _P, _I, _P, _LL, _I, _P, _I, _I, _I, _P),
     "tpuamg_coarse_gemv": (_P, _I, _P, _P, _I, _I, _I, _P),
     "tpuamg_coarse_reduce": (_P, _P, _I, _I, _P),
+    "tpuamg_cheb_sweep": (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                          _P, _LL, _I, _I, _F, _P, _P),
+    "tpuamg_pcg_rz": (_P, _P, _P, _LL, _P),
+    "tpuamg_pcg_pq": (_P, _I, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _I,
+                      _P, _P),
+    "tpuamg_pcg_xr": (_P, _P, _P, _P, _LL, _P, _P, _I, _P, _P, _P),
+    "tpuamg_pcg_finish": (_P, _P, _LL, _P, _I, _P, _P),
 }
 
 _lib = None

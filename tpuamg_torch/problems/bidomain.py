@@ -1,4 +1,5 @@
-"""Bidomain model problems (2D/3D): assembly of the monolithic system.
+"""Bidomain model problems (2D/3D): assembly of the monolithic system and
+the H1 errors of a solution.
 
 Copy of the JAX package's ``problems/bidomain.py`` (P1 only), which
 rebuilds the reference drivers bidomain_2d.py and bidomain_3d.py:
@@ -20,7 +21,8 @@ from collections import namedtuple
 import numpy as np
 
 from ..fem import (tagged_unit_square, tagged_unit_cube, stiffness_matrix,
-                   mass_matrix, load_vector, apply_bc_monolithic)
+                   mass_matrix, load_vector, apply_bc_monolithic,
+                   errornorm_p1)
 from ..sparse import bmat
 
 Params = namedtuple("Params", ("kappa1", "kappa2", "gamma"))
@@ -126,3 +128,15 @@ def get_system(mesh, data, params: Params, pdegree=1):
     bc_vals = np.concatenate([data["u1"](coords), data["u2"](coords)])
     A, b = apply_bc_monolithic(A, b, bc_dofs, bc_vals)
     return A, b, (n, n), bc_dofs
+
+
+def compute_errors(mesh, data, x, sizes, pdegree=1):
+    """H1 errors (|u1 - u1h|_1, |u2 - u2h|_1) of a P1 solution x."""
+    if pdegree != 1:
+        raise NotImplementedError(
+            "P2 error norms wait for fem/pk.py (ROADMAP Queue 1 item 11)")
+    n1, _ = sizes
+    u1h, u2h = x[:n1], x[n1:]
+    e1 = errornorm_p1(data["u1"], data["grad_u1"], mesh, u1h, "H1")
+    e2 = errornorm_p1(data["u2"], data["grad_u2"], mesh, u2h, "H1")
+    return e1, e2

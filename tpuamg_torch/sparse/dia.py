@@ -63,6 +63,10 @@ class DIA:
     def matvec(self, x):
         return dia_spmv_plain(self.offsets, self.data, x)
 
+    def residual(self, x, b):
+        """b - A @ x."""
+        return dia_spmv_plain(self.offsets, self.data, x, b)
+
     def diagonal(self):
         if 0 in self.offsets:
             return self.data[self.offsets.index(0)]

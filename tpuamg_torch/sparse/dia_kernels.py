@@ -8,10 +8,19 @@ bfloat16, and the sum taken in float32.  On a CUDA tensor the wrappers
 launch K1; on a CPU tensor they run the plain version below (a sum of
 shifted slices); on anything else they raise.
 
+``FusedChebSmoother`` takes the place of the JAX package's smoother of
+the same name: a whole Chebyshev sweep (``iters`` x degree steps of
+t = b - A x, d = C t / theta or a d + c C t, x += d, and optionally the
+final residual) is one call of ``cheb_sweep``, which launches kernel K3
+(csrc/cheb.cu) on a CUDA tensor and runs the plain version
+``cheb_sweep_plain`` on a CPU tensor.
+
 Also here, copied: the host helpers ``_cheb_coefs`` and ``blockinv_dia``
 that the fused hierarchy uses.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -180,3 +189,151 @@ def _cheb_coefs(lmax, lmin, degree, kind=1):
         coefs.append((float(rho_new * rho), float(2.0 * rho_new / delta)))
         rho = rho_new
     return float(theta), tuple(coefs)
+
+
+# ---------------------------------------------------------------------------
+# K3: the whole Chebyshev sweep, and its plain version
+# ---------------------------------------------------------------------------
+
+def cheb_sweep_plain(offsA, planesA, offsC, planesC, x, b, theta, coefs,
+                     degree, iters=1, want_r=False):
+    """The sweep in torch ops: returns (x_new, b - A x_new or None).
+
+    Per step: t = b - A x; d = C t / theta (first step) or
+    a_k d + c_k C t; x += d.  Sums in x's dtype, planes cast to it."""
+    x = x.clone()
+    d = torch.zeros_like(x)
+    s = 1.0 / theta
+    for _ in range(iters):
+        for k in range(degree):
+            t = dia_spmv_plain(offsA, planesA, x, b)
+            ct = dia_spmv_plain(offsC, planesC, t)
+            if k == 0:
+                d = s * ct
+            else:
+                a, c = coefs[k - 1]
+                d = a * d + c * ct
+            x += d
+    r = dia_spmv_plain(offsA, planesA, x, b) if want_r else None
+    return x, r
+
+
+class _ChebConsts:
+    """What a K3 launch takes that does not change between applications:
+    the plane pointers and flags, the offsets and coefficients as ctypes
+    arrays, 1/theta, and the (t, d) scratch."""
+
+    def __init__(self, offsA, planesA, offsC, planesC, n, theta, coefs,
+                 degree, work=None):
+        if len(coefs) != degree - 1:
+            raise ValueError(f"{len(coefs)} coefficient pairs for degree "
+                             f"{degree}")
+        kernels.require(planesA, "A planes", numel=len(offsA) * n)
+        kernels.require(planesC, "C planes", numel=len(offsC) * n,
+                        device=planesA.device)
+        t, d = work if work is not None else (
+            torch.empty(n, dtype=torch.float32, device=planesA.device),
+            torch.empty(n, dtype=torch.float32, device=planesA.device))
+        for name, w in (("t", t), ("d", d)):
+            kernels.require(w, name, dtype=torch.float32, numel=n,
+                            device=planesA.device)
+        self.device = planesA.device
+        self.n = int(n)
+        self.work = (t, d)
+        self.head = (planesA.data_ptr(), kernels.storage_flag(planesA),
+                     len(offsA), kernels.int_array(tuple(offsA)),
+                     planesC.data_ptr(), kernels.storage_flag(planesC),
+                     len(offsC), kernels.int_array(tuple(offsC)))
+        self.degree = int(degree)
+        self.inv_theta = float(1.0 / theta)
+        flat = [float(v) for ac in coefs for v in ac]
+        self.coefs = (ctypes.c_float * max(len(flat), 1))(*flat)
+
+    def launch(self, x, b, iters, want_r):
+        """K3 on x and b: (x_new, r or None), x left unchanged."""
+        kernels.require(x, "x", dtype=torch.float32, numel=self.n,
+                        device=self.device)
+        kernels.require(b, "b", dtype=torch.float32, numel=self.n,
+                        device=self.device)
+        t, d = self.work
+        out = x.clone()
+        r = torch.empty_like(x) if want_r else None
+        rc = kernels.lib().tpuamg_cheb_sweep(
+            *self.head, out.data_ptr(), b.data_ptr(), t.data_ptr(),
+            d.data_ptr(), None if r is None else r.data_ptr(), self.n,
+            self.degree, int(iters), self.inv_theta, self.coefs,
+            kernels.stream_ptr())
+        kernels.check(rc, "cheb_sweep")
+        kernels.LAUNCHES["cheb_sweep"] += 1
+        return out, r
+
+
+def cheb_sweep(offsA, planesA, offsC, planesC, x, b, theta, coefs, degree,
+               iters=1, want_r=False, work=None):
+    """One smoother application: (x_new, r or None), x left unchanged.
+
+    CPU tensors: the plain version.  CUDA tensors: kernel K3, one C call
+    that launches the t-pass and the C-apply of every step (and the final
+    residual pass) in turn on the current stream; x and b float32, the
+    planes float32 or bfloat16.  work: optional (t, d) float32 scratch of
+    x's length."""
+    if x.device.type == "cpu":
+        return cheb_sweep_plain(offsA, planesA, offsC, planesC, x, b, theta,
+                                coefs, degree, iters, want_r)
+    return _ChebConsts(offsA, planesA, offsC, planesC, x.shape[0], theta,
+                       coefs, degree, work).launch(x, b, iters, want_r)
+
+
+class FusedChebSmoother:
+    """Chebyshev smoother whose whole sweep is one ``cheb_sweep`` call.
+
+    Holds its own A and C (= masked B^{-1}) planes, (nd, n) in float32 or
+    bfloat16, on the unfused hierarchy's interleaved layout (no padding).
+    Drop-in for BlockChebyshevSmoother on the grid path: the ``A``
+    argument of smooth() is ignored, and reverse is a no-op (Chebyshev is
+    self-adjoint in the B inner product)."""
+
+    def __init__(self, offsA, planesA, offsC, planesC, n, lmax, lmin,
+                 degree=3, kind=1):
+        self.offsA = tuple(int(o) for o in offsA)
+        self.planesA = planesA
+        self.offsC = tuple(int(o) for o in offsC)
+        self.planesC = planesC
+        self.n = int(n)
+        self.lmax = lmax
+        self.lmin = lmin
+        self.degree = int(degree)
+        self.kind = int(kind)
+        self.theta, self.coefs = _cheb_coefs(lmax, lmin, self.degree,
+                                             self.kind)
+        self._consts = None     # K3's launch constants, at the first launch
+
+    @classmethod
+    def build(cls, A_dia, C_dia, lmax, lmin, degree=3, kind=1):
+        """From two DIA (or KernelDIA) operators over the same n."""
+        pa = getattr(A_dia, "planes", None)
+        pc = getattr(C_dia, "planes", None)
+        return cls(A_dia.offsets, A_dia.data if pa is None else pa,
+                   C_dia.offsets, C_dia.data if pc is None else pc,
+                   A_dia.shape[0], lmax, lmin, degree, kind)
+
+    def _sweep(self, x, b, iters, want_r):
+        if x.device.type == "cpu":
+            return cheb_sweep_plain(self.offsA, self.planesA, self.offsC,
+                                    self.planesC, x, b, self.theta,
+                                    self.coefs, self.degree, int(iters),
+                                    want_r)
+        if self._consts is None:
+            self._consts = _ChebConsts(self.offsA, self.planesA, self.offsC,
+                                       self.planesC, self.n, self.theta,
+                                       self.coefs, self.degree)
+        return self._consts.launch(x, b, iters, want_r)
+
+    def smooth(self, A, x, b, iters=1, reverse=False):
+        del A, reverse
+        return self._sweep(x, b, iters, False)[0]
+
+    def smooth_residual(self, A, x, b, iters=1):
+        """(x_smoothed, b - A x_smoothed) in one sweep."""
+        del A
+        return self._sweep(x, b, iters, True)

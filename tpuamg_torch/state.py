@@ -1,21 +1,26 @@
 """Carry state across from the JAX package.
 
 The functions here take the JAX package's operator objects (a ``DIA`` or
-``PDIA``, a ``FusedVCycle``) and build the port's objects from their
-numpy arrays and their specs' plain fields: offsets, level dims, K, rows,
-theta, Chebyshev coefficients, degree, pre/post, nc, rows_c.  They never
-import JAX: they read attributes and call ``numpy.asarray``.  Tests use
-them to hold both packages to the same planes and the same coarse inverse
-T, whatever each side's float32 LU would compute.
+``PDIA``, a ``FusedVCycle``, a ``FusedPCG``, the ``MGPreconditioner`` of
+``setup_grid``) and build the port's objects from their numpy arrays and
+their plain fields: offsets, level dims, K, rows, theta, Chebyshev
+coefficients and intervals, degree, pre/post, nc, rows_c, cycle settings.
+They never import JAX: they read attributes and call ``numpy.asarray``.
+Tests use them to hold both packages to the same planes and the same
+coarse inverse, whatever each side's float32 LU would compute.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .amg.grid_fused import CycleSpec, FusedVCycle, LevelSpec
+from .amg.grid import ChebyshevDiagSmoother, GridLevel
+from .amg.grid_fused import CycleSpec, FusedPCG, FusedVCycle, LevelSpec
+from .amg.hierarchy import MGPreconditioner
+from .amg.structured import BlockChebyshevSmoother, DiaChebyshevSmoother
 from .kernels import LANES, resolve_device
-from .sparse.dia_kernels import KernelDIA
+from .sparse.dia import DIA
+from .sparse.dia_kernels import FusedChebSmoother, KernelDIA
 
 
 def to_tensor(a, device=None):
@@ -75,3 +80,57 @@ def vcycle_from_jax(vc, F, device=None) -> FusedVCycle:
                      device)
     return FusedVCycle(spec, A_p, C_p, M_p, to_tensor(vc.T, device), mask,
                        level_nnz=vc.level_nnz, coarse_n=vc.coarse_n)
+
+
+def fused_pcg_from_jax(fp, F, device=None) -> FusedPCG:
+    """A JAX FusedPCG -> the port's FusedPCG: its cycle (vcycle_from_jax)
+    and its float32 outer planes Q4 (blocked (nblocks, nd, rb, 128)) over
+    the same offsets, the JAX rows_p padding dropped."""
+    vc = vcycle_from_jax(fp.vc, F, device)
+    n = vc.nflat
+    Q = KernelDIA(fp.offsQ, to_tensor(_level_planes(fp.Q4, n), device),
+                  (n, n), 0)
+    return FusedPCG(vc, Q)
+
+
+def _grid_operator(A, device):
+    """A JAX DIA (any dtype) -> DIA; a PDIA -> KernelDIA."""
+    if hasattr(A, "data2d"):
+        return kernel_dia_from_jax(A, device)
+    return DIA(A.offsets, to_tensor(np.asarray(A.data), device), A.shape,
+               A.nnz)
+
+
+def _grid_smoother(sm, device):
+    name = type(sm).__name__
+    args = (sm.lmax, sm.lmin, sm.degree, getattr(sm, "kind", 1))
+    if name == "BlockChebyshevSmoother":
+        return BlockChebyshevSmoother(to_tensor(sm.blockinv, device),
+                                      to_tensor(sm.mask, device), *args)
+    if name == "ChebyshevDiagSmoother":
+        return ChebyshevDiagSmoother(to_tensor(sm.invd, device),
+                                     to_tensor(sm.mask, device), *args)
+    if name == "DiaChebyshevSmoother":
+        return DiaChebyshevSmoother(_grid_operator(sm.C, device), *args)
+    if name == "FusedChebSmoother":
+        n = sm.n
+        return FusedChebSmoother(
+            sm.offsA, to_tensor(_level_planes(sm.dataA4, n), device),
+            sm.offsC, to_tensor(_level_planes(sm.dataC4, n), device), n,
+            *args)
+    raise TypeError(f"no port of the smoother {name}")
+
+
+def grid_hierarchy_from_jax(prec, device=None) -> MGPreconditioner:
+    """The MGPreconditioner of the JAX package's ``amg.grid.setup_grid``
+    -> the port's, on the same level operators, smoother data, masks,
+    dims and coarse inverse, with the same cycle settings."""
+    levels = [GridLevel(_grid_operator(L.A, device),
+                        _grid_smoother(L.smoother, device),
+                        to_tensor(L.mask, device), L.dims, L.F)
+              for L in prec.levels]
+    return MGPreconditioner(
+        levels, to_tensor(prec.coarse_inv, device), cycle=prec.cycle,
+        maxit=prec.maxit, presmooth=prec.presmooth,
+        postsmooth=prec.postsmooth, amli_degree=prec.amli_degree,
+        max_w_work=prec.max_w_work, coarse_scaling=prec.coarse_scaling)
