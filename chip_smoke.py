@@ -38,6 +38,20 @@ bidomain_2d driver, adds:
  11. the driver, python -m tpuamg_torch.problems.bidomain_2d -backend grid
      -dtype float32 -nrefs 4 -gamma 1e6 -precond metric_mono, in-process
      in a temporary working directory.
+The third slice, the distributed grid solve (dist/) on a one-rank NCCL
+group (the card's machine has one card), adds:
+ 12. K6 (the sharded Chebyshev step, csrc/cheb_step.cu) on level 0 of the
+     n=512 distributed hierarchy (gamma 1e6, f32), cut into 8 in-process
+     shards with halos sliced from the whole vector: each shard's step
+     against cheb_step_plain, and the shards' degree-3 sweep and residual
+     against K3's sweep of the whole level;
+ 13. K7's counterpart (dia_spmv_pallas, K1's padded-x entry) on the n=512
+     outer operator and on synthetic DIAs with 1024-aligned and with
+     arbitrary offsets, against dia_spmv_plain;
+ 14. distributed_grid_solve at n=512 (phase 5's system), V-cycle, tol
+     1e-8, with the kernels and with pallas=False;
+ 15. the JAX record at n=64 on one rank: 18 iterations, nflat 15360,
+     pallas_levels 4.
 Then a JSON line {"kernels": [...]}, the nvidia-smi line, and, last, the
 result line {"ok": true, "device": {...}}.  Any failed check raises, and
 the script exits nonzero; a watchdog ends it, with a traceback and a
@@ -418,6 +432,10 @@ def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4):
     # ---- 7-11: the second slice ----------------------------------------
     slice2(dev, kern, A, b, n, n2, nrefs)
     say(f"[11 done] total {time.perf_counter() - t_all:.1f} s")
+
+    # ---- 12-15: the third slice ----------------------------------------
+    slice3(dev, kern, A, b, n)
+    say(f"[15 done] total {time.perf_counter() - t_all:.1f} s")
     return kern
 
 
@@ -741,6 +759,308 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
 
     # ---- 11. the driver ------------------------------------------------
     run_driver(dev, nrefs)
+
+
+# docs/sample_results/dist_scaling.txt, ndev 1: bidomain 2D n=64, f32,
+# V-cycle, gamma 1e6, tol 1e-8 (scripts/dist_scaling.py)
+DIST_RECORD = dict(n=64, iterations=18, nflat=15360, pallas_levels=4)
+DIST_SHARDS = 8         # the in-process shards of phase 12
+
+
+def slice3(dev, kern, A512, b512, n512):
+    """Phases 12-15 (module docstring), on a one-rank NCCL group (gloo for
+    a CPU rehearsal) that this function starts and ends."""
+    import torch.distributed as dist
+    from tpuamg_torch.dist import (device_mesh, distributed_grid_solve,
+                                   setup_distributed_grid)
+    mesh = device_mesh(None if dev.type == "cuda" else "cpu")
+    try:
+        dims = (n512 + 1,) * 2
+        t0 = time.perf_counter()
+        prob = setup_distributed_grid(A512, b512, dims, F=2, mesh=mesh)
+        sync(dev)
+        say(f"[12 setup] n={n512} distributed hierarchy on "
+            f"{mesh.size} rank ({dist.get_backend()}) "
+            f"{time.perf_counter() - t0:.2f} s: {prob.info}, level rows "
+            f"{[L.A.shape[0] for L in prob.prec.levels]}")
+        k6 = phase12(dev, kern, prob)
+        k7 = phase13(dev, kern, prob)
+        phase14(dev, prob, A512, b512, dims, mesh, k6, k7)
+        del prob
+        phase15(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase12(dev, kern, prob):
+    """K6 on level 0, in-process shards against plain and against K3."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.dist.dist_kernels import (ShardedChebSmoother,
+                                                cheb_step, cheb_step_plain,
+                                                halo_shards)
+    from tpuamg_torch.sparse.dia_kernels import cheb_sweep, dia_spmv
+    on_card = dev.type == "cuda"
+    sm = prob.prec.levels[0].smoother
+    check(isinstance(sm, ShardedChebSmoother),
+          f"level 0 smoother is {type(sm).__name__}")
+    n, h, F, k = sm.n, sm.h, sm.F, sm.degree
+    pA, pC, oA, oC = sm.planesA, sm.planesC, sm.offsA, sm.offsC
+    nsh = DIST_SHARDS
+    check(n % (nsh * F) == 0, f"level 0 ({n} rows) does not cut into "
+          f"{nsh} shards of whole node blocks")
+    nl = n // nsh
+    rows = [slice(r * nl, (r + 1) * nl) for r in range(nsh)]
+    pAs = [pA[:, s].contiguous() for s in rows]
+    pCs = [pC[:, s].contiguous() for s in rows]
+    rng = np.random.default_rng(12)
+
+    def vec(m):
+        return torch.as_tensor(rng.standard_normal(m), dtype=torch.float32
+                               ).to(dev)
+    x, bb, d = vec(n), vec(n), vec(n)
+    bs = [bb[s].contiguous() for s in rows]
+    # each shard's step, a first and a later one, against plain (the
+    # errors over the level: shards of ghost rows are all zero)
+    errs, abs_err = [], 0.0
+    before = kernels.LAUNCHES["cheb_step"]
+    xhs = halo_shards(x, h, nsh)
+    for first, s_, c_ in sm.steps[:2]:
+        got = {"kernel": [], "plain": []}
+        for r, xh in enumerate(xhs):
+            args = (oA, pAs[r], oC, pCs[r], xh, h, bs[r],
+                    d[rows[r]].contiguous(), first, s_, c_)
+            got["kernel"].append(torch.cat(cheb_step(*args, F)))
+            got["plain"].append(torch.cat(cheb_step_plain(*args)))
+        xk, xp = torch.cat(got["kernel"]), torch.cat(got["plain"])
+        errs.append(rel_err(xk, xp))
+        abs_err = max(abs_err, float((xk - xp).abs().max()))
+    sync(dev)
+    check(not on_card or kernels.LAUNCHES["cheb_step"] == before + 2 * nsh,
+          "cheb_step: one launch per shard step")
+    check(all(np.isfinite(e) and e <= 1e-5 for e in errs),
+          f"K6 vs plain: rel errors up to {max(errs):.3e} > 1e-5")
+    # the shards' degree-k sweep and residual against K3's whole sweep
+    theta = 1.0 / sm.steps[0][1]
+    coefs = tuple((a_, c_) for _, a_, c_ in sm.steps[1:])
+    ds = [torch.zeros(nl, device=dev) for _ in rows]
+    xs = x.clone()
+    for first, s_, c_ in sm.steps:
+        xhs = halo_shards(xs, h, nsh)
+        xs = torch.cat([cheb_step(oA, pAs[r], oC, pCs[r], xhs[r], h, bs[r],
+                                  ds[r], first, s_, c_, F, d_out=ds[r])[0]
+                        for r in range(nsh)])
+    rs = torch.cat([dia_spmv(oA, pAs[r], xh, bs[r], x_pad=h)
+                    for r, xh in enumerate(halo_shards(xs, h, nsh))])
+    x3, r3 = cheb_sweep(oA, pA, oC, pC, x, bb, theta, coefs, k, 1, True)
+    y1, r1 = sm.smooth_residual(None, x, bb)
+    y1, r1 = y1.clone(), r1.clone()
+    y0 = sm.smooth(None, x, bb).clone()
+    sync(dev)
+    vs_k3 = {"shards x": rel_err(xs, x3), "shards r": rel_err(rs, r3),
+             "smooth_residual x": rel_err(y1, x3),
+             "smooth_residual r": rel_err(r1, r3), "smooth": rel_err(y0, x3)}
+    check(all(np.isfinite(e) and e <= 1e-5 for e in vs_k3.values()),
+          f"sharded sweep vs K3: rel errors {vs_k3} > 1e-5")
+    # one step on the whole level, as the one-rank smoother launches it
+    xh = torch.zeros(n + 2 * h, device=dev)
+    xh[h:h + n] = x
+    dd, xo = d.clone(), torch.empty_like(x)
+    _, a1, c1 = sm.steps[1]
+    reps = 200 if on_card else 2
+    ms = timed_ms(lambda: cheb_step(oA, pA, oC, pC, xh, h, bb, dd, False,
+                                    a1, c1, F, x_out=xo, d_out=dd), reps,
+                  dev)
+    plain_ms = timed_ms(lambda: cheb_step_plain(oA, pA, oC, pC, xh, h, bb,
+                                                dd, False, a1, c1),
+                        max(reps // 20, 2), dev)
+    ms_sr = timed_ms(lambda: sm.smooth_residual(None, x, bb), reps // 2 or 1,
+                     dev)
+    s_b = pA.element_size()
+    nbytes = (len(oA) + len(oC)) * n * s_b + 4 * (n + 2 * h) + 16 * n
+    flops = 2 * (len(oA) + len(oC)) * n + 4 * n
+    bms, by = bound_ms(nbytes, flops)
+    say(f"[12 K6 cheb_step] level 0 n={n} halo {h} F={F} offsets A "
+        f"{len(oA)} C {len(oC)} {pA.dtype}: {nsh} shards, steps vs plain "
+        f"max rel err {max(errs):.3e} max_abs_err {abs_err:.3e}; vs K3 "
+        f"{vs_k3} | step {ms:.5f} ms plain {plain_ms:.5f} ms | bound "
+        f"{bms:.5f} ms ({by}, {nbytes} B) -> {bms / ms:.3f} of bound | "
+        f"smooth_residual (degree {k}: {k} exchanges + K6, 1 exchange + "
+        f"K1 padded residual) {ms_sr:.5f} ms | library: none")
+    row = dict(name="cheb_step", route="cuda",
+               source="tpuamg_torch/csrc/cheb_step.cu",
+               replaces="tpuamg/dist/pallas_dist.py:186", launches=0,
+               max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, library_ms=None)
+    kern.append(row)
+    return row
+
+
+def phase13(dev, kern, prob):
+    """K7's counterpart: the whole-vector SpMV over a zero-padded x."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.sparse.dia import DIA
+    from tpuamg_torch.sparse.dia_kernels import (dia_spmv, dia_spmv_pallas,
+                                                 dia_spmv_plain)
+    on_card = dev.type == "cuda"
+    rng = np.random.default_rng(13)
+    Aop = prob.A
+    outer = DIA(Aop.offsets, Aop.planes, Aop.shape, Aop.nnz)
+    n = Aop.shape[0]
+    check(Aop.planes.shape[1] == n, "one rank holds the whole operator")
+    ns = 1 << 20
+    synth = {
+        "1024-aligned": (-4096, -1024, 0, 1024, 3072),
+        "arbitrary": (-1155, -1027, -130, -3, -1, 0, 1, 3, 127, 1026, 1155)}
+    cases = [("outer n=%d" % n, outer)]
+    for label, offs in synth.items():
+        planes = torch.as_tensor(rng.standard_normal((len(offs), ns)),
+                                 dtype=torch.float32).to(dev)
+        cases.append((label, DIA(offs, planes, (ns, ns), 0)))
+    errs, abs_err = {}, 0.0
+    for label, D in cases:
+        x = torch.as_tensor(rng.standard_normal(D.shape[0]),
+                            dtype=torch.float32).to(dev)
+        before = kernels.LAUNCHES["dia_spmv_pad"]
+        yk = dia_spmv_pallas(D, x)
+        yp = dia_spmv_plain(D.offsets, D.data, x)
+        sync(dev)
+        check(not on_card or kernels.LAUNCHES["dia_spmv_pad"] == before + 1,
+              "dia_spmv_pallas: one padded-x launch")
+        errs[label] = float((yk - yp).abs().max() / yp.abs().max())
+        abs_err = max(abs_err, float((yk - yp).abs().max()))
+    check(all(np.isfinite(e) and e <= 1e-5 for e in errs.values()),
+          f"K7 counterpart vs plain: {errs} > 1e-5")
+    x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32).to(dev)
+    reps = 200 if on_card else 2
+    ms = timed_ms(lambda: dia_spmv_pallas(outer, x), reps, dev)
+    # the padded-x launch alone, on a buffer padded once
+    pad = max(abs(o) for o in outer.offsets)
+    xp = torch.zeros(n + 2 * pad, device=dev)
+    xp[pad:pad + n] = x
+    y = torch.empty_like(x)
+    ms_launch = timed_ms(lambda: dia_spmv(outer.offsets, outer.data, xp,
+                                          out=y, x_pad=pad), reps, dev)
+    plain_ms = timed_ms(lambda: dia_spmv_plain(outer.offsets, outer.data, x),
+                        max(reps // 20, 2), dev)
+    nbytes = outer.data.numel() * outer.data.element_size() + 4 * n * 2
+    flops = 2 * outer.data.numel()
+    bms, by = bound_ms(nbytes, flops)
+    csr_host = outer.to_host()
+
+    def make_library_call():
+        M = csr_of(csr_host, dev)
+        return lambda: M @ x
+    lib = library_ms(make_library_call, reps, dev)
+    say(f"[13 K7 dia_spmv_pallas] K1 padded-x entry over a zero-padded x: "
+        f"rel err {errs} max_abs_err {abs_err:.3e} | outer n={n}, "
+        f"{len(outer.offsets)} offsets: {ms:.5f} ms (pad copy + launch; "
+        f"the launch alone {ms_launch:.5f} ms) "
+        f"plain {plain_ms:.5f} ms csr-library {lib} ms | bound {bms:.5f} "
+        f"ms ({by}, {nbytes} B) -> {bms / ms:.3f} of bound")
+    row = dict(name="dia_spmv_pad", route="cuda",
+               source="tpuamg_torch/csrc/dia.cu",
+               replaces="tpuamg/sparse/pallas_kernels.py:37", launches=0,
+               max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, library_ms=lib)
+    kern.append(row)
+    return row
+
+
+def phase14(dev, prob, A, b, dims, mesh, k6, k7):
+    """The slice at full width: distributed_grid_solve at n=512 with the
+    kernels and with pallas=False."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.dist import distributed_grid_solve
+    from tpuamg_torch.krylov import pcg
+    on_card = dev.type == "cuda"
+    out = {}
+    for pallas in (None, False):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res, _ = distributed_grid_solve(A, b, dims, F=2, mesh=mesh,
+                                        tol=1e-8, maxiter=500, pallas=pallas)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+        tr = float(np.linalg.norm(b - A.matvec(res.x)) / np.linalg.norm(b))
+        out[pallas] = res
+        info = res.dist_info
+        say(f"[14 distributed pallas={pallas}] n={dims[0] - 1} 1 rank: "
+            f"iterations {res.niters} converged {res.converged} true rel "
+            f"residual {tr:.3e} | set-up + solve {wall:.2f} s | {info} | "
+            f"launches {counts}")
+        check(res.converged and np.isfinite(tr) and tr <= 1e-6,
+              f"distributed pallas={pallas}: converged {res.converged}, "
+              f"true rel residual {tr:.3e}")
+        if pallas is None:
+            check(info["pallas_levels"] == info["sharded_levels"]
+                  and info["outer_pallas"], f"kernel coverage {info}")
+            if on_card:
+                for kname in ("cheb_step", "dia_spmv_pad",
+                              "dia_residual_pad"):
+                    check(counts.get(kname, 0) > 0,
+                          f"distributed solve: kernel {kname} not launched")
+                k6["launches"] = counts["cheb_step"]
+                k7["launches"] = counts["dia_spmv_pad"]
+                # one outer SpMV per executed iteration, and one for r0
+                ran = counts["dia_spmv_pad"] - 1
+                say(f"[14 launches] per executed iteration ({ran}): "
+                    + ", ".join(f"{kk} {v / ran:.2f}" for kk, v in
+                                sorted(counts.items())))
+        elif on_card:
+            check(not any(counts.values()),
+                  f"pallas=False launched kernels {counts}")
+    check(abs(out[None].niters - out[False].niters) <= 2,
+          f"distributed kernels {out[None].niters} vs plain "
+          f"{out[False].niters} iterations")
+    # time per executed iteration and the device's idle share, on the
+    # kernels' hierarchy built in phase 12
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = prob.solve(tol=1e-8, maxiter=500)
+    sync(dev)
+    t_solve = time.perf_counter() - t0
+    ran = max(kernels.LAUNCHES["dia_spmv_pad"] - 1, 1) if on_card else \
+        -(-res.niters // 32) * 32
+    say(f"[14 solve] iterations {res.niters} (executed {ran} in whole "
+        f"chunks of 32) {t_solve:.3f} s: {t_solve / ran * 1e3:.3f} ms per "
+        f"executed iteration, {t_solve / max(res.niters, 1) * 1e3:.3f} per "
+        f"counted")
+    if on_card:
+        prof = profile_busy(lambda: pcg(prob.A, prob.b, M=prob.prec.matvec,
+                                        tol=0.0, maxiter=4, chunk=4), dev)
+        if prof is None:
+            say("[14 profile] not measured: the profiler saw no device time")
+        else:
+            rows_prof, busy, wall = prof
+            per_it = busy / 5        # 4 iterations + the start's cycle
+            say(f"[14 profile] 4 iterations: device busy {busy:.1f} us "
+                f"({per_it:.1f} us per iteration, the start counted as one) "
+                f"of {wall * 1e6:.1f} us wall with the profiler on; idle "
+                f"share without it {1 - per_it * ran / (t_solve * 1e6):.4f}")
+            say("[14 profile] device us by kernel (calls, total): "
+                + json.dumps([(kk, c, round(u, 1))
+                              for kk, c, u in rows_prof[:14]]))
+
+
+def phase15(dev, mesh):
+    """The JAX record at n=64 on one rank."""
+    from tpuamg_torch.dist import distributed_grid_solve
+    n = DIST_RECORD["n"]
+    A, b = system(GAMMA, n)
+    t0 = time.perf_counter()
+    res, _ = distributed_grid_solve(A, b, (n + 1,) * 2, F=2, mesh=mesh,
+                                    tol=1e-8, maxiter=120)
+    sync(dev)
+    info = res.dist_info
+    say(f"[15 record] n={n}: iterations {res.niters} nflat {info['nflat']} "
+        f"pallas_levels {info['pallas_levels']} sharded_levels "
+        f"{info['sharded_levels']} outer_pallas {info['outer_pallas']} "
+        f"(JAX record: {DIST_RECORD}) | {time.perf_counter() - t0:.2f} s")
+    check(res.niters == DIST_RECORD["iterations"]
+          and info["nflat"] == DIST_RECORD["nflat"]
+          and info["pallas_levels"] == info["sharded_levels"]
+          == DIST_RECORD["pallas_levels"], f"n={n} vs the JAX record")
 
 
 def route_pair(fp, bk, vc, A, b, slots, n, dev, its_a, plain, ms_a=None):

@@ -313,3 +313,179 @@ def test_pcg_chunk_kernel_is_deterministic():
     torch.cuda.synchronize()
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
+
+
+# ---------------------------------------------------------------------------
+# K6 (the sharded Chebyshev step), K1's padded-x entry, and the
+# distributed grid solve on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+def _step_inputs(dev, storage, n=98_304, F=2, seed=5):
+    """A diagonally dominant random DIA and the masked block inverse of
+    random F x F node blocks as C planes (sparse.dia_kernels.blockinv_dia),
+    as the distributed grid path builds them."""
+    from tpuamg_torch.sparse.dia_kernels import blockinv_dia
+    rng = np.random.default_rng(seed)
+    offsA = (-2 * 257 - 1, -2 * 257, -2, -1, 0, 1, 2, 2 * 257, 2 * 257 + 1)
+    planes = rng.standard_normal((len(offsA), n)) * 0.1
+    planes[offsA.index(0)] = 2.0 + rng.random(n)
+    blockinv = np.linalg.inv(rng.standard_normal((n // F, F, F)) * 0.1
+                             + 2 * np.eye(F))
+    mask = np.ones(n)
+    mask[-7:] = 0.0
+    offsC, cdata = blockinv_dia(blockinv, mask)
+
+    def dev_planes(p):
+        return torch.as_tensor(p, dtype=torch.float32).to(storage).to(dev)
+    x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32).to(dev)
+    b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32).to(dev)
+    return offsA, dev_planes(planes), tuple(offsC), dev_planes(cdata), x, b
+
+
+def _rel(a, b):
+    return float(torch.linalg.vector_norm((a - b).double())
+                 / torch.linalg.vector_norm(b.double()))
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("first", [True, False])
+def test_cheb_step_kernel_matches_plain(storage, first):
+    from tpuamg_torch import kernels
+    from tpuamg_torch.dist.dist_kernels import (cheb_step, cheb_step_plain,
+                                                halo_shards)
+    dev = _card()
+    ndev, F = 8, 2
+    offsA, pA, offsC, pC, x, b = _step_inputs(dev, storage)
+    h = max(abs(o) for o in offsA)
+    nl = x.shape[0] // ndev
+    d = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        x.shape[0]), dtype=torch.float32).to(dev)
+    before = kernels.LAUNCHES["cheb_step"]
+    for r, xh in enumerate(halo_shards(x, h, ndev)):
+        rows = slice(r * nl, (r + 1) * nl)
+        args = (offsA, pA[:, rows].contiguous(), offsC,
+                pC[:, rows].contiguous(), xh, h, b[rows].contiguous(),
+                d[rows].contiguous(), first, 0.7, 0.3)
+        xk, dk = cheb_step(*args, F)
+        torch.cuda.synchronize()
+        xp, dp = cheb_step_plain(*args)
+        assert _rel(xk, xp) < 1e-5, r
+        assert _rel(dk, dp) < 1e-5, r
+    assert kernels.LAUNCHES["cheb_step"] == before + ndev
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+def test_sharded_cheb_steps_match_k3(storage):
+    """Eight in-process shards, each step on halo'd slices (K6), then the
+    residual through K1's padded-x entry, against K3's sweep of the whole
+    level."""
+    from tpuamg_torch.dist.dist_kernels import cheb_step, halo_shards
+    from tpuamg_torch.sparse.dia_kernels import (_cheb_coefs, cheb_sweep,
+                                                 dia_spmv)
+    dev = _card()
+    ndev, F, degree = 8, 2, 3
+    offsA, pA, offsC, pC, x, b = _step_inputs(dev, storage, seed=7)
+    theta, coefs = _cheb_coefs(2.2, 0.275, degree)
+    h = max(abs(o) for o in offsA)
+    nl = x.shape[0] // ndev
+    rows = [slice(r * nl, (r + 1) * nl) for r in range(ndev)]
+    pAs = [pA[:, s].contiguous() for s in rows]
+    pCs = [pC[:, s].contiguous() for s in rows]
+    bs = [b[s].contiguous() for s in rows]
+    ds = [torch.zeros(nl, device=dev) for _ in rows]
+    steps = [(True, 1.0 / theta, 0.0)] + [(False, a, c) for a, c in coefs]
+    xs = x.clone()
+    for first, s, c in steps:
+        xhs = halo_shards(xs, h, ndev)
+        xs = torch.cat([cheb_step(offsA, pAs[r], offsC, pCs[r], xhs[r], h,
+                                  bs[r], ds[r], first, s, c, F,
+                                  d_out=ds[r])[0] for r in range(ndev)])
+    rs = torch.cat([dia_spmv(offsA, pAs[r], xh, bs[r], x_pad=h)
+                    for r, xh in enumerate(halo_shards(xs, h, ndev))])
+    x3, r3 = cheb_sweep(offsA, pA, offsC, pC, x, b, theta, coefs, degree,
+                        1, True)
+    torch.cuda.synchronize()
+    assert _rel(xs, x3) < 1e-5
+    assert _rel(rs, r3) < 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+def test_dia_padded_entry_matches_plain(dtype, residual):
+    from tpuamg_torch import kernels
+    from tpuamg_torch.sparse.dia import DIA
+    from tpuamg_torch.sparse.dia_kernels import (dia_spmv, dia_spmv_pallas,
+                                                 dia_spmv_plain)
+    dev = _card()
+    n, pad = 70_001, 1200
+    offsets = (-1155, -1027, -130, -3, -1, 0, 1, 3, 127, 1026, 1155)
+    planes = _random_planes(n, len(offsets), dtype, 0).to(dev)
+    rng = np.random.default_rng(1)
+    # a shard's buffer: nonzero halos on both sides
+    xh = torch.as_tensor(rng.standard_normal(n + 2 * pad),
+                         dtype=torch.float32).to(dev)
+    b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32
+                        ).to(dev) if residual else None
+    name = ("dia_residual" if residual else "dia_spmv") + "_pad"
+    before = kernels.LAUNCHES[name]
+    y = dia_spmv(offsets, planes, xh, b, x_pad=pad)
+    torch.cuda.synchronize()
+    ref = dia_spmv_plain(offsets, planes, xh, b, x_pad=pad)
+    assert float((y - ref).abs().max() / ref.abs().max()) < 1e-5
+    assert kernels.LAUNCHES[name] == before + 1
+    # x_pad = 0 is the unpadded entry, bit for bit
+    x = xh[pad:pad + n].contiguous()
+    assert torch.equal(dia_spmv(offsets, planes, x, b, x_pad=0),
+                       dia_spmv(offsets, planes, x, b))
+    if not residual:
+        # K7's counterpart over these arbitrary (not 1024-aligned) offsets
+        yk = dia_spmv_pallas(DIA(offsets, planes, (n, n)), x)
+        yp = dia_spmv_plain(offsets, planes, x)
+        assert float((yk - yp).abs().max() / yp.abs().max()) < 1e-5
+
+
+def test_cheb_step_kernel_rejects_bad_input():
+    from tpuamg_torch.dist.dist_kernels import cheb_step
+    dev = _card()
+    n, h = 1000, 3
+    pA = torch.zeros((3, n), device=dev)
+    pC = torch.zeros((3, n), device=dev)
+    xh = torch.zeros(n + 2 * h, device=dev)
+    v = torch.zeros(n, device=dev)
+    with pytest.raises(RuntimeError):      # a C offset crosses F = 1 blocks
+        cheb_step((-3, 0, 3), pA, (-1, 0, 1), pC, xh, h, v, v, True, 1.0,
+                  0.0, 1)
+    with pytest.raises(ValueError):        # x_out overlaps x_h
+        cheb_step((-3, 0, 3), pA, (-1, 0, 1), pC, xh, h, v, v, True, 1.0,
+                  0.0, 2, x_out=xh[h:h + n])
+
+
+def test_distributed_grid_solve_one_rank_nccl():
+    """distributed_grid_solve at n=64 on a one-rank NCCL group: the JAX
+    record (docs/sample_results/dist_scaling.txt, ndev 1) through K6 and
+    K1's padded-x entry."""
+    import torch.distributed as dist
+    from tpuamg_torch import kernels
+    from tpuamg_torch.dist import device_mesh, distributed_grid_solve
+    from tpuamg_torch.fem import mms
+    from tpuamg_torch.problems.bidomain import Params, get_mesh, get_system
+    _card()
+    n = 64
+    p = Params(2.0, 3.0, 1e6)
+    A, b, _, _ = get_system(get_mesh(n, 2), mms.setup_bidomain_mms(p, 2), p)
+    mesh = device_mesh()
+    try:
+        kernels.reset_launches()
+        res, _ = distributed_grid_solve(A, b, (n + 1, n + 1), F=2,
+                                        mesh=mesh, tol=1e-8, maxiter=120)
+        counts = dict(kernels.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    info = res.dist_info
+    assert res.converged and res.niters == 18, res.niters
+    assert info["nflat"] == 15360 and info["outer_pallas"]
+    assert info["pallas_levels"] == info["sharded_levels"] == 4
+    for name in ("cheb_step", "dia_spmv_pad", "dia_residual_pad"):
+        assert counts.get(name, 0) > 0, (name, counts)
+    rel = np.linalg.norm(b - A.matvec(res.x)) / np.linalg.norm(b)
+    assert rel < 1e-6, rel

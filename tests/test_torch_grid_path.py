@@ -335,6 +335,20 @@ def test_kernel_rule(pallas, dtype, kernel_classes):
     assert tgrid.use_kernels(pallas, dtype) is kernel_classes
 
 
+def test_kernels_forced_on_f64_data_raise():
+    """pallas=True with f64 data raises rather than run the plain classes
+    under the kernels' name; setup_grid and grid_system pass it on."""
+    with pytest.raises(ValueError, match="float64"):
+        tgrid.use_kernels(True, torch.float64)
+    A = HostCSR.from_coo(np.arange(4), np.arange(4), np.ones(4), (4, 4))
+    with pytest.raises(ValueError):
+        tgrid.setup_grid(A, (2, 2), F=1, dtype=torch.float64, pallas=True,
+                         device="cpu")
+    with pytest.raises(ValueError):
+        tgrid.grid_system(A, np.arange(4), dtype=torch.float64, pallas=True,
+                          device="cpu")
+
+
 # ---------------------------------------------------------------------------
 # setup_grid_fused(reference=True): the fused cycle's own f64 reference
 # ---------------------------------------------------------------------------

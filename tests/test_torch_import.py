@@ -20,6 +20,8 @@ import tpuamg_torch.problems.solve, tpuamg_torch.problems.bidomain_2d
 import tpuamg_torch.problems.driver, tpuamg_torch.amg.grid
 import tpuamg_torch.amg.hierarchy, tpuamg_torch.amg.structured
 import tpuamg_torch.io_utils, tpuamg_torch.fem.error
+import tpuamg_torch.dist, tpuamg_torch.dist.dist_kernels
+import tpuamg_torch.dist.sharding, tpuamg_torch.dist.solve
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'tpuamg'))
 print('BAD', bad)
@@ -55,4 +57,9 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
         setup_grid(A, (2, 2), F=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         solve_system(A, np.ones(4), "metric_mono", (4,), grid=((2, 2), 1))
+    from tpuamg_torch.dist import device_mesh, distributed_grid_solve
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distributed_grid_solve(A, np.ones(4), (2, 2), F=1)
     assert KernelDIA.from_host(A, device="cpu").planes.device.type == "cpu"

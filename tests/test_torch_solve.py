@@ -268,3 +268,29 @@ def test_compute_errors_p2_raises():
     from tpuamg_torch.problems.bidomain import compute_errors
     with pytest.raises(NotImplementedError, match="item 11"):
         compute_errors(None, None, np.zeros(2), (1, 1), pdegree=2)
+
+
+def test_signature_follows_jax_order():
+    """The parameters solve_system shares with the JAX signature come in
+    the same order, so positional calls mean the same in both."""
+    import inspect
+    from tpuamg.problems.solve import solve_system as jax_solve
+    ours = list(inspect.signature(tsolve.solve_system).parameters)
+    theirs = list(inspect.signature(jax_solve).parameters)
+    shared = [p for p in ours if p in theirs]
+    assert shared == [p for p in theirs if p in ours]
+    assert ours[:7] == ["A", "b", "precond", "sizes", "idofs", "params",
+                        "blocks"]
+
+
+def test_krylov_dtype_raises_on_the_grid_path():
+    A, b, sizes, _ = _system(1e2, n=8)
+    with pytest.raises(ValueError, match="krylov_dtype"):
+        tsolve.solve_system(A, b, "metric_mono", sizes, grid=((9, 9), 2),
+                            dtype=np.float32, krylov_dtype=np.float64,
+                            device="cpu")
+    rep = tsolve.solve_system(A, b, "metric_mono", sizes, grid=((9, 9), 2),
+                              dtype=np.float64, krylov_dtype=np.float64,
+                              idofs=np.arange(4), blocks=[], tol=1e-8,
+                              maxiter=60, device="cpu")
+    assert rep.converged

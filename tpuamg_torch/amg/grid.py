@@ -18,9 +18,9 @@ of ``problems.solve.solve_system``'s grid branch).  Which smoother and
 operator a level gets follows the JAX package's ``resolve_pallas`` rule
 on its accelerator, as ``use_kernels`` states it: f32/bf16 data runs the
 kernels (``KernelDIA`` -> K1, ``FusedChebSmoother`` -> K3), f64 data and
-``pallas=False`` run the plain torch classes.  The device only decides
-how a kernel class runs: its kernel on a CUDA tensor, its plain version
-on a CPU tensor.
+``pallas=False`` run the plain torch classes, and ``pallas=True`` with f64
+data raises.  The device only decides how a kernel class runs: its
+kernel on a CUDA tensor, its plain version on a CPU tensor.
 
 Also here, for the fused hierarchy (``amg/grid_fused.py``): the field
 interleave, the window-coarse operator, the node-block inverses and the
@@ -83,23 +83,36 @@ class GridLevel:
         return self.mask.dtype
 
     def restrict(self, r):
-        g = (r * self.mask).reshape(self.dims + (self.F,))
-        for ax, d in enumerate(self.dims):
-            if d % 2:
-                pad = list(g.shape)
-                pad[ax] = 1
-                g = torch.cat([g, g.new_zeros(pad)], dim=ax)
-        for ax in range(len(self.dims)):
-            d2 = (self.dims[ax] + 1) // 2
-            shape = g.shape[:ax] + (d2, 2) + g.shape[ax + 1:]
-            g = g.reshape(shape).sum(dim=ax + 1)
-        return g.reshape(-1)
+        return window_sum(r * self.mask, self.dims, self.F)
 
     def prolong(self, ec):
-        g = ec.reshape(self.cdims + (self.F,))
-        for ax in range(len(self.dims)):
-            g = g.repeat_interleave(2, dim=ax).narrow(ax, 0, self.dims[ax])
-        return g.reshape(-1) * self.mask
+        return window_spread(ec, self.dims, self.F).reshape(-1) * self.mask
+
+
+def window_sum(r, dims, F):
+    """The 2^d window sums of a flat (dims, F) vector: pad odd axes with
+    a zero row, then sum pairs along every grid axis; flat result."""
+    g = r.reshape(tuple(dims) + (F,))
+    for ax, d in enumerate(dims):
+        if d % 2:
+            pad = list(g.shape)
+            pad[ax] = 1
+            g = torch.cat([g, g.new_zeros(pad)], dim=ax)
+    for ax in range(len(dims)):
+        d2 = (dims[ax] + 1) // 2
+        shape = g.shape[:ax] + (d2, 2) + g.shape[ax + 1:]
+        g = g.reshape(shape).sum(dim=ax + 1)
+    return g.reshape(-1)
+
+
+def window_spread(ec, dims, F):
+    """The transpose of window_sum: each coarse entry repeated over its
+    window, cropped to dims; returns the (dims, F) grid."""
+    cdims = tuple((d + 1) // 2 for d in dims)
+    g = ec.reshape(cdims + (F,))
+    for ax in range(len(dims)):
+        g = g.repeat_interleave(2, dim=ax).narrow(ax, 0, dims[ax])
+    return g
 
 
 def interleave_fields(nv, F):
@@ -183,10 +196,16 @@ def use_kernels(pallas, dtype) -> bool:
     ``resolve_pallas`` rule on its accelerator.  ``pallas=False`` forces
     the plain torch classes; otherwise f32/bf16 data gets the kernels and
     f64 data the plain classes (there is no f64 kernel, in either
-    package).  It never depends on whether a card is present."""
+    package), except that ``pallas=True`` with f64 data raises
+    ValueError rather than run the plain classes under the kernels' name.
+    It never depends on whether a card is present."""
     if pallas is False:
         return False
-    return torch.empty((), dtype=dtype).element_size() <= 4
+    narrow = torch.empty((), dtype=dtype).element_size() <= 4
+    if pallas is True and not narrow:
+        raise ValueError(f"pallas=True needs float32 or bfloat16 data: "
+                         f"no kernel takes {dtype}")
+    return narrow
 
 
 def _on(a, dtype, device):

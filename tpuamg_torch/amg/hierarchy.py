@@ -13,7 +13,9 @@ multigrid (``fmg`` with V, ``fmg_w`` with W inner cycles) — HAZmath's
 ``cycle_type``.  W/AMLI recursion degrades to V below the depth where the
 recursive visit count would pass ``max_w_work``.  Every cycle runs on the
 tensors' device in torch ops; the scalars of AMLI and coarse scaling stay
-there (``torch.where``), so a cycle never waits for the host.
+there (``torch.where``), so a cycle never waits for the host.  Their inner
+products go through the level operator's ``dots`` where it has them (a
+row-sharded level's, which all-reduce over the ranks).
 
 The split application of the host-tail hybrids (``cycle_down`` /
 ``cycle_up``) is ROADMAP Queue 1 item 9 and is not here yet.
@@ -25,6 +27,16 @@ import torch
 
 def _vdot(u, v):
     return torch.dot(u.reshape(-1), v.reshape(-1))
+
+
+def _dot_of(A):
+    """The inner product of a level's vectors: through the operator's
+    ``dots`` where it has them (a row-sharded operator all-reduces over
+    the ranks), else _vdot."""
+    dots = getattr(A, "dots", None)
+    if dots is None:
+        return _vdot
+    return lambda u, v: dots((u, v))[0]
 
 
 class MGPreconditioner:
@@ -92,8 +104,9 @@ class MGPreconditioner:
         ec = ec.to(b.dtype)
         if self.coarse_scaling and lvl + 1 < len(self.levels):
             Ac = self.levels[lvl + 1].A
-            denom = _vdot(ec, Ac.matvec(ec))
-            num = _vdot(rc, ec)
+            dot = _dot_of(Ac)
+            denom = dot(ec, Ac.matvec(ec))
+            num = dot(rc, ec)
             alpha = torch.where(
                 denom > 0, torch.clamp(num / (denom + 1e-300), 0.0, 2.0),
                 torch.ones_like(denom))
@@ -108,12 +121,13 @@ class MGPreconditioner:
         if lvl == len(self.levels):
             return self._coarse_solve(b)
         A = self.levels[lvl].A
+        dot = _dot_of(A)
         for _ in range(self.amli_degree):
             r = A.residual(x, b)
             z = self._cycle(lvl, r, torch.zeros_like(r))
             Az = A.matvec(z)
-            denom = _vdot(z, Az)
-            alpha = torch.where(denom > 0, _vdot(z, r) / denom,
+            denom = dot(z, Az)
+            alpha = torch.where(denom > 0, dot(z, r) / denom,
                                 torch.ones_like(denom))
             x = x + alpha * z
         return x

@@ -3,7 +3,9 @@
 // Replaces tpuamg/sparse/dia_pallas.py:_spmv_kernel (the outer operator of
 // every PCG iteration, via PDIA.matvec) and :_residual_kernel (PDIA.residual;
 // here also the t-pass of every Chebyshev step and the level residual of
-// the V-cycle in vcycle.cu's host sequence).
+// the V-cycle in vcycle.cu's host sequence).  Its padded-x entry also
+// replaces tpuamg/sparse/pallas_kernels.py:_dia_kernel and the SpMV and
+// residual calls of tpuamg/dist/pallas_dist.py:ShardedPDIA.
 //
 // Bound on an H100: bytes.  Each row does 2 flops per diagonal against
 // 4 (f32) or 2 (bf16) plane bytes, far below the card's ~20 flop/byte
@@ -23,12 +25,33 @@ template <typename P>
 __global__ void __launch_bounds__(kThreads)
 dia_sweep_kernel(const P* __restrict__ planes, const float* __restrict__ x,
                  const float* __restrict__ b, float* __restrict__ y,
-                 long long n, Offsets of) {
+                 long long n, long long x_pad, Offsets of) {
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float acc = dia_row(planes, x, n, i, of);
+  const float acc = dia_row_padded(planes, x, n, x_pad, i, of);
   y[i] = b != nullptr ? __ldg(b + i) - acc : acc;
+}
+
+inline int dia_sweep(const void* planes, int planes_bf16, const void* x,
+                     const void* b, void* y, long long n, long long x_pad,
+                     int nd, const int* offsets, void* stream) {
+  if (nd < 0 || nd > kMaxDiags || x_pad < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  const Offsets of = make_offsets(nd, offsets);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* bf = static_cast<const float*>(b);
+  float* yf = static_cast<float*>(y);
+  if (planes_bf16) {
+    dia_sweep_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(planes), xf, bf, yf, n, x_pad, of);
+  } else {
+    dia_sweep_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<const float*>(planes), xf, bf, yf, n, x_pad, of);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tpuamg
@@ -40,20 +63,20 @@ extern "C" int tpuamg_dia_sweep(const void* planes, int planes_bf16,
                                 const void* x, const void* b, void* y,
                                 long long n, int nd, const int* offsets,
                                 void* stream) {
-  using namespace tpuamg;
-  if (nd < 0 || nd > kMaxDiags) return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  const Offsets of = make_offsets(nd, offsets);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* bf = static_cast<const float*>(b);
-  float* yf = static_cast<float*>(y);
-  if (planes_bf16) {
-    dia_sweep_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(planes), xf, bf, yf, n, of);
-  } else {
-    dia_sweep_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
-        static_cast<const float*>(planes), xf, bf, yf, n, of);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return tpuamg::dia_sweep(planes, planes_bf16, x, b, y, n, 0, nd, offsets,
+                           stream);
+}
+
+// The padded-x entry: as tpuamg_dia_sweep, but x has n + 2 x_pad entries
+// and row i of the operator reads x[i + x_pad + off[d]] (zero outside the
+// buffer).  It serves a row shard whose halos were exchanged into the
+// buffer's ends (dist/dist_kernels.py), and the whole-vector SpMV over a
+// zero-padded x that replaces tpuamg/sparse/pallas_kernels.py:_dia_kernel.
+extern "C" int tpuamg_dia_sweep_pad(const void* planes, int planes_bf16,
+                                    const void* x, long long x_pad,
+                                    const void* b, void* y, long long n,
+                                    int nd, const int* offsets,
+                                    void* stream) {
+  return tpuamg::dia_sweep(planes, planes_bf16, x, b, y, n, x_pad, nd,
+                           offsets, stream);
 }

@@ -7,7 +7,9 @@
 // streams through coalesced) and x[i + off[d]] (a shifted contiguous
 // window of x, served mostly from L1/L2 because the offsets of one
 // operator span a few thousand entries).  Indices outside [0, n) read 0,
-// which is what the zero halo of the TPU layout gave.  Sums are float32.
+// which is what the zero halo of the TPU layout gave; the padded form
+// reads x from a buffer with x_pad halo entries on each side instead.
+// Sums are float32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,20 +45,33 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p,
   return __bfloat162float(p[i]);
 }
 
+// sum_d planes[d, i] * x[i + x_pad + off[d]], float32 accumulation, over
+// an x of nx = n + 2 x_pad entries whose row i sits at i + x_pad (a row
+// shard with its halos); reads outside [0, nx) give 0
+template <typename P>
+__device__ __forceinline__ float dia_row_padded(const P* __restrict__ planes,
+                                                const float* __restrict__ x,
+                                                long long n, long long x_pad,
+                                                long long i,
+                                                const Offsets& of) {
+  const long long nx = n + 2 * x_pad;
+  float acc = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < of.nd; ++d) {
+    const long long j = i + x_pad + of.o[d];
+    const float xv = (j >= 0 && j < nx) ? __ldg(x + j) : 0.f;
+    acc = fmaf(load_f32(planes, static_cast<long long>(d) * n + i), xv, acc);
+  }
+  return acc;
+}
+
 // sum_d planes[d, i] * x[i + off[d]], float32 accumulation
 template <typename P>
 __device__ __forceinline__ float dia_row(const P* __restrict__ planes,
                                          const float* __restrict__ x,
                                          long long n, long long i,
                                          const Offsets& of) {
-  float acc = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < of.nd; ++d) {
-    const long long j = i + of.o[d];
-    const float xv = (j >= 0 && j < n) ? __ldg(x + j) : 0.f;
-    acc = fmaf(load_f32(planes, static_cast<long long>(d) * n + i), xv, acc);
-  }
-  return acc;
+  return dia_row_padded(planes, x, n, 0, i, of);
 }
 
 }  // namespace tpuamg

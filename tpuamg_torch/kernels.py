@@ -1,10 +1,11 @@
 """Build, load and call the package's hand-written CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface.  At first use, one
-``nvcc`` call compiles all of them for Hopper (``sm_90a``) into one shared
-library under ``_build/``, named by a hash of the sources and flags, so a
-stale library is never loaded; the build writes a temporary file and
-renames it, and takes no lock.  The library is loaded with ``ctypes``.
+``nvcc`` per source, all started together, compiles them for Hopper
+(``sm_90a``), and one more links them into one shared library under
+``_build/``, named by a hash of the sources and flags, so a stale library
+is never loaded; the build writes temporary files and renames the
+library into place, and takes no lock.  The library is loaded with ``ctypes``.
 Nothing is built or loaded at import: the CPU paths never need a CUDA
 toolchain.
 
@@ -30,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 300
 
 LANES = 128
@@ -47,6 +48,9 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "tpuamg_dia_sweep": (_P, _I, _P, _P, _P, _LL, _I, _P, _P),
+    "tpuamg_dia_sweep_pad": (_P, _I, _P, _LL, _P, _P, _LL, _I, _P, _P),
+    "tpuamg_cheb_step": (_P, _I, _I, _P, _P, _I, _I, _P, _P, _LL, _P, _P,
+                         _P, _P, _LL, _I, _I, _F, _F, _P),
     "tpuamg_cheb_apply": (_P, _I, _P, _P, _P, _LL, _I, _P, _I, _F, _F, _P),
     "tpuamg_restrict": (_P, _P, _LL, _I, _P, _I, _I, _I, _P),
     "tpuamg_prolong": (_P, _P, _I, _P, _LL, _I, _P, _I, _I, _I, _P),
@@ -106,36 +110,60 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtpuamg_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the nvcc commands side by side; returns their logs in order.
+    Each runs in its own process group, so a timeout stops its children
+    too; any failure raises."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              start_new_session=True) for c in cmds]
+    logs, failed = [], []
+    deadline = time.monotonic() + NVCC_TIMEOUT_S
+    try:
+        for c, proc in zip(cmds, procs):
+            log, _ = proc.communicate(
+                timeout=max(deadline - time.monotonic(), 1.0))
+            logs.append(log)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(c)} ({proc.returncode}):\n{log}")
+    except subprocess.TimeoutExpired:
+        failed.append(f"nvcc timed out after {NVCC_TIMEOUT_S} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return logs
+
+
 def build() -> Path:
-    """Compile csrc/*.cu with one nvcc call (skipped when the library for
-    these exact sources exists).  Fills BUILD_INFO."""
+    """Compile csrc/*.cu for Hopper, one nvcc per source, all started
+    together, then link them into one library (skipped when the library
+    for these exact sources exists).  Fills BUILD_INFO."""
     out = library_path()
     if out.is_file():
         BUILD_INFO.update(seconds=0.0, library=str(out), ptxas="",
                           cached=True)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.stem}-{os.getpid()}.tmp.so")
+    tag = f"{out.stem}-{os.getpid()}"
+    tmp = out.with_name(f".{tag}.tmp.so")
     cu, _ = _sources()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    objs = [BUILD_DIR / f".{tag}-{f.stem}.o" for f in cu]
     t0 = time.perf_counter()
-    # own process group, so a timeout stops nvcc's children too
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
     try:
-        log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
+        logs = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(f)]
+                     for f, o in zip(cu, objs)])
+        _run([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc timed out after {NVCC_TIMEOUT_S} s")
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)
+        for o in objs:
+            o.unlink(missing_ok=True)
     BUILD_INFO.update(seconds=time.perf_counter() - t0, library=str(out),
-                      ptxas=log, cached=False)
+                      ptxas="".join(logs), cached=False)
     return out
 
 
@@ -175,6 +203,13 @@ def storage_flag(t: torch.Tensor) -> int:
         return 1
     raise TypeError(f"kernel storage must be float32 or bfloat16, "
                     f"not {t.dtype}")
+
+
+def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the memory of two contiguous tensors overlaps."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return (a0 < b0 + b.numel() * b.element_size()
+            and b0 < a0 + a.numel() * a.element_size())
 
 
 def require(t: torch.Tensor, name: str, *, dtype=None, numel=None,

@@ -63,7 +63,11 @@ def pcg(A, b, M=None, x0=None, tol=1e-8, maxiter=500, callback=None,
         chunk=32, stop_type=2):
     """Solve A x = b with PCG; returns CGResult.
 
-    A, M: callables (matvec) or objects with .matvec.
+    A, M: callables (matvec) or objects with .matvec.  An A that carries
+    ``dots`` (a row-sharded operator, ``dist.dist_kernels.ShardedDIA``)
+    supplies the inner products of its vectors: every dot and norm then
+    goes through it, two all-reduces over the ranks per iteration, so the
+    host reads the same statistics on every rank.
 
     stop_type selects the convergence test, mirroring HAZmath's
     ``linear_stop_type`` (input_metric.dat:54):
@@ -77,6 +81,17 @@ def pcg(A, b, M=None, x0=None, tol=1e-8, maxiter=500, callback=None,
     test, and x is the iterate at the end of that chunk.
     """
     Afn = A.matvec if hasattr(A, "matvec") else A
+    dots = getattr(A, "dots", None)
+
+    def dot(u, v):
+        return _dot(u, v) if dots is None else dots((u, v))[0]
+
+    def rz_norms(r, z, v):
+        """r.z, ||r||_2, ||v||_2"""
+        if dots is None:
+            return _dot(r, z), _norm(r), _norm(v)
+        s = dots((r, z), (r, r), (v, v))
+        return s[0], torch.sqrt(s[1]), torch.sqrt(s[2])
     Mfn = (M.matvec if hasattr(M, "matvec") else M) if M is not None \
         else (lambda r: r)
     x = torch.zeros_like(b) if x0 is None else x0.clone()
@@ -86,8 +101,8 @@ def pcg(A, b, M=None, x0=None, tol=1e-8, maxiter=500, callback=None,
     r = b - Afn(x)
     z = Mfn(r)
     p = z.clone()
-    rz = _dot(r, z)
-    init = torch.stack([rz, _norm(r), _norm(b)]).double().cpu().numpy()
+    rz, nr, nb = rz_norms(r, z, b)
+    init = torch.stack([rz, nr, nb]).double().cpu().numpy()
     res0 = float(np.sqrt(max(init[0], 0.0)))
     res_hist = [res0]
     true_hist = [float(init[1])]
@@ -111,16 +126,16 @@ def pcg(A, b, M=None, x0=None, tol=1e-8, maxiter=500, callback=None,
         stats = []
         for _ in range(n_run):
             Ap = Afn(p)
-            alpha = rz / (_dot(p, Ap) + tiny)
+            alpha = rz / (dot(p, Ap) + tiny)
             x.add_(alpha * p)
             r.sub_(alpha * Ap)
             z = Mfn(r)
-            rz_new = _dot(r, z)
+            rz_new, nr, nx = rz_norms(r, z, x)
             beta = rz_new / (rz + tiny)
             p = z + beta * p
             rz = rz_new
             stats.append(torch.stack([alpha, beta, torch.sqrt(rz.abs()),
-                                      _norm(r), _norm(x)]))
+                                      nr, nx]))
         # one host read per chunk: alpha beta res true xnorm
         o = torch.stack(stats).double().cpu().numpy()
         cross = _crossed(o)

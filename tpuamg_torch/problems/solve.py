@@ -72,13 +72,14 @@ def _torch_dtype(dtype):
     return getattr(torch, name)
 
 
-def solve_system(A: HostCSR, b, precond: str, sizes,
-                 params: AMGParameters = None,
+def solve_system(A: HostCSR, b, precond: str, sizes, idofs=None,
+                 params: AMGParameters = None, blocks=None,
                  tol=1e-8, maxiter=500, method="cg", stop_type=2,
                  dtype=torch.float64, callback=None,
                  grid=None, structured_coords=None,
                  pallas=None, refine=0, inner_tol=1e-6,
-                 timing_runs=1, chunk=None, device=None) -> SolveReport:
+                 timing_runs=1, chunk=None, krylov_dtype=None,
+                 device=None) -> SolveReport:
     """Solve A x = b with a multigrid-preconditioned Krylov method.
 
     grid: (dims, F) — the structured-grid hierarchy, the one branch ported
@@ -99,8 +100,9 @@ def solve_system(A: HostCSR, b, precond: str, sizes,
     chunk: PCG iterations between host reads (krylov.pcg chunk; the
     fused route (a) keeps pcg_fused's own default of 32).
 
-    The JAX signature's ``idofs``, ``blocks`` and ``krylov_dtype`` serve
-    only the algebraic and structured branches, and come with them.
+    The parameters shared with the JAX signature come in its order.  The
+    grid branch ignores ``idofs`` and ``blocks``, as the JAX grid branch
+    does, and raises the JAX ValueError for ``krylov_dtype != dtype``.
 
     device: None = the CUDA card (an error without one); "cpu" runs the
     plain versions."""
@@ -125,6 +127,12 @@ def solve_system(A: HostCSR, b, precond: str, sizes,
 
     dev = kernels.resolve_device(device)
     dt = _torch_dtype(dtype)
+    # krylov_dtype is a structured-path feature: the grid path's kernels
+    # take vectors of the hierarchy's dtype only
+    if krylov_dtype is not None and _torch_dtype(krylov_dtype) != dt:
+        raise ValueError("krylov_dtype != dtype is only supported "
+                         "on the structured path")
+    del idofs, blocks
     dims, F = grid
     prm = params or PRESETS["metric_schwarz"]
     wanted = str(dt).replace("torch.", "")

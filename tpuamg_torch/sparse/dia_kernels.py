@@ -15,6 +15,10 @@ final residual) is one call of ``cheb_sweep``, which launches kernel K3
 (csrc/cheb.cu) on a CUDA tensor and runs the plain version
 ``cheb_sweep_plain`` on a CPU tensor.
 
+``dia_spmv_pallas`` is the counterpart of the JAX package's
+``sparse/pallas_kernels.py`` (kernel ``_dia_kernel``, which nothing
+there calls): y = A x over a zero-padded x, through K1's padded-x entry.
+
 Also here, copied: the host helpers ``_cheb_coefs`` and ``blockinv_dia``
 that the fused hierarchy uses.
 """
@@ -33,34 +37,41 @@ from .host import HostCSR
 # K1 and its plain version
 # ---------------------------------------------------------------------------
 
-def dia_spmv_plain(offsets, planes, x, b=None, out=None):
+def dia_spmv_plain(offsets, planes, x, b=None, out=None, x_pad=0):
     """sum_d planes[d] * x[i + offsets[d]] (zero outside [0, n)), or
     b minus that; accumulated in x's dtype (float32 for the kernel's
-    inputs), the planes cast from their storage dtype."""
-    n = x.shape[0]
-    acc = torch.zeros_like(x)
+    inputs), the planes cast from their storage dtype.
+
+    x_pad > 0: x holds n + 2 x_pad entries and row i reads
+    x[i + x_pad + offsets[d]] (zero outside that buffer): a row shard
+    with its halos, or a zero-padded whole vector."""
+    n = x.shape[0] - 2 * x_pad
+    acc = torch.zeros(n, dtype=x.dtype, device=x.device)
     for d, off in enumerate(offsets):
-        if abs(off) >= n:
+        lo, hi = max(0, -off - x_pad), min(n, n + x_pad - off)
+        if lo >= hi:
             continue
         p = planes[d].to(x.dtype)
-        if off >= 0:
-            acc[:n - off] += p[:n - off] * x[off:]
-        else:
-            acc[-off:] += p[-off:] * x[:n + off]
+        acc[lo:hi] += p[lo:hi] * x[lo + x_pad + off:hi + x_pad + off]
     y = acc if b is None else b - acc
     if out is None:
         return y
     return out.copy_(y)
 
 
-def dia_spmv(offsets, planes, x, b=None, out=None):
+def dia_spmv(offsets, planes, x, b=None, out=None, x_pad=None):
     """y = A x (b is None) or y = b - A x, A in DIA planes (nd, n).
 
-    CPU tensors: the plain version.  CUDA tensors: kernel K1, with x, b
-    and out float32 and the planes float32 or bfloat16."""
+    x_pad: None reads x over [0, n); an int reads it from a buffer of
+    n + 2 x_pad entries whose row i sits at i + x_pad (see
+    dia_spmv_plain).
+
+    CPU tensors: the plain version.  CUDA tensors: kernel K1 (its padded-x
+    entry when x_pad is an int), with x, b and out float32 and the planes
+    float32 or bfloat16."""
     if x.device.type == "cpu":
-        return dia_spmv_plain(offsets, planes, x, b, out)
-    n = x.shape[0]
+        return dia_spmv_plain(offsets, planes, x, b, out, x_pad or 0)
+    n = x.shape[0] - 2 * (x_pad or 0)
     nd = len(offsets)
     kernels.require(x, "x", dtype=torch.float32)
     kernels.require(planes, "planes", numel=nd * n, device=x.device)
@@ -68,19 +79,43 @@ def dia_spmv(offsets, planes, x, b=None, out=None):
         kernels.require(b, "b", dtype=torch.float32, numel=n,
                         device=x.device)
     if out is None:
-        out = torch.empty_like(x)
+        out = torch.empty(n, dtype=torch.float32, device=x.device)
     kernels.require(out, "out", dtype=torch.float32, numel=n,
                     device=x.device)
-    if out.data_ptr() == x.data_ptr():
-        raise ValueError("out must not alias x")
+    if kernels.overlaps(out, x):
+        raise ValueError("out must not overlap x")
     name = "dia_spmv" if b is None else "dia_residual"
-    rc = kernels.lib().tpuamg_dia_sweep(
-        planes.data_ptr(), kernels.storage_flag(planes), x.data_ptr(),
-        None if b is None else b.data_ptr(), out.data_ptr(), n, nd,
-        kernels.int_array(tuple(offsets)), kernels.stream_ptr())
+    head = (planes.data_ptr(), kernels.storage_flag(planes), x.data_ptr())
+    tail = (None if b is None else b.data_ptr(), out.data_ptr(), n, nd,
+            kernels.int_array(tuple(offsets)), kernels.stream_ptr())
+    if x_pad is None:
+        rc = kernels.lib().tpuamg_dia_sweep(*head, *tail)
+    else:
+        name += "_pad"
+        rc = kernels.lib().tpuamg_dia_sweep_pad(*head, int(x_pad), *tail)
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
     return out
+
+
+def dia_spmv_pallas(A, x, block=8192):
+    """y = A @ x for a DIA operator (DIA or KernelDIA) over any offsets:
+    the counterpart of tpuamg/sparse/pallas_kernels.py:dia_spmv_pallas.
+
+    As there, x is padded by max|offset| zeros on both sides, and the
+    product is one pass over the padded x: here K1's padded-x entry (the
+    plain version on a CPU tensor).  The JAX kernel accepts only offsets
+    that are multiples of 1024, a limit of the TPU compiler; this one
+    takes any.  ``block`` sized the TPU kernel's VMEM tiles and is
+    accepted and ignored."""
+    del block
+    planes = getattr(A, "planes", None)
+    planes = A.data if planes is None else planes
+    pad = max((abs(int(o)) for o in A.offsets), default=0)
+    n = A.shape[0]
+    xp = torch.zeros(n + 2 * pad, dtype=x.dtype, device=x.device)
+    xp[pad:pad + n] = x
+    return dia_spmv(A.offsets, planes, xp, x_pad=pad)
 
 
 class KernelDIA:
