@@ -26,11 +26,11 @@ The second slice, solve_system's grid branch (problems/solve.py) and the
 bidomain_2d driver, adds:
   7. K3 (the Chebyshev sweep, csrc/cheb.cu) against its plain version on
      level 0 of the route-(c) hierarchy at n=256, f32 storage;
-  8. K5 (the PCG chunk, csrc/pcg.cu) against its plain chunk at n=256 in
-     the driver's configuration (metric_schwarz: W-cycle, coarse_dof 100,
-     Chebyshev degree 3; gamma 1e6, f32); the route-(a) solve to 1e-8
-     beside the plain chunk's and route (b)'s on the same hierarchy, and
-     the same pair at n=512;
+  8. K5 (the PCG chunk) against its plain chunk at n=256 in the driver's
+     configuration (metric_schwarz: W-cycle, coarse_dof 100, Chebyshev
+     degree 3; gamma 1e6, f32); the route-(a) solve to 1e-8 beside the
+     plain chunk's and route (b)'s on the same hierarchy, and the same
+     pair at n=512;
   9. route (c), NL-AMLI(2), at n=256 to 1e-6 through solve_system, with
      the kernel classes and with pallas=False;
  10. refine at n=512 (V-cycle, coarse_dof 4096, f32, refine 4, inner tol
@@ -45,13 +45,22 @@ group (the card's machine has one card), adds:
      shards with halos sliced from the whole vector: each shard's step
      against cheb_step_plain, and the shards' degree-3 sweep and residual
      against K3's sweep of the whole level;
- 13. K7's counterpart (dia_spmv_pallas, K1's padded-x entry) on the n=512
-     outer operator and on synthetic DIAs with 1024-aligned and with
-     arbitrary offsets, against dia_spmv_plain;
+ 13. K7's counterpart (dia_spmv_pallas) on the n=512 outer operator and
+     on synthetic DIAs with 1024-aligned and with arbitrary offsets,
+     against dia_spmv_plain;
  14. distributed_grid_solve at n=512 (phase 5's system), V-cycle, tol
      1e-8, with the kernels and with pallas=False;
  15. the JAX record at n=64 on one rank: 18 iterations, nflat 15360,
      pallas_levels 4.
+The fourth slice redesigns two kernels and extends two phases:
+  8. K5 is one persistent cooperative launch per chunk
+     (csrc/pcg_persistent.cu), the whole cycle inside it as an op program
+     (amg/cycle_program.py): checked against the plain chunk and against
+     the earlier sequenced chunk (csrc/pcg.cu around K2, timed beside
+     it), and profiled; route (a) must make one launch per chunk and none
+     of csrc/pcg.cu's;
+ 13. dia_spmv_pallas is one launch of K1's unpadded entry, no padded copy;
+     the padded-x launch alone is timed beside it.
 Then a JSON line {"kernels": [...]}, the nvidia-smi line, and, last, the
 result line {"ok": true, "device": {...}}.  Any failed check raises, and
 the script exits nonzero; a watchdog ends it, with a traceback and a
@@ -84,6 +93,7 @@ K2_STEPS = ("cheb_apply", "restrict", "prolong", "coarse_gemv",
 # the launches of csrc/pcg.cu that one chunk makes
 K5_STEPS = ("pcg_rz", "pcg_pq", "pcg_xr", "pcg_finish")
 N2 = 256            # the second slice's full width: route (a)'s largest n
+ROUTE_A_CHUNK = 32  # pcg_fused's chunk, which route (a) keeps
 # The TPU record of refine at n=512, gamma 1e6 (V-cycle, coarse_dof 4096,
 # f32, refine 4, inner tol 2e-5): Krylov iterations per refinement pass,
 # from docs/sample_results/bidomain_2d_tpu_gamma_n512.txt (the 1e6 row),
@@ -172,6 +182,21 @@ def ptxas_summary(log):
     return out, spills
 
 
+def ptxas_of(log, kernel):
+    """-Xptxas -v's lines (registers, shared memory, stack, spills) for
+    each compiled entry whose name contains `kernel`."""
+    out, keep = [], False
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            keep = kernel in m.group(1)
+            if keep:
+                out.append(re.sub(r"^_Z\w*?\d+(pcg)", r"\1", m.group(1)))
+        elif keep and ("Used" in line or "spill" in line):
+            out.append(line.replace("ptxas info    :", "").strip())
+    return out
+
+
 def system(gamma, n):
     from tpuamg_torch.fem import mms
     from tpuamg_torch.problems.bidomain import Params, get_mesh, get_system
@@ -224,6 +249,8 @@ def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4):
         say(f"[1 build] {time.perf_counter() - t0:.2f} s "
             f"(nvcc {info['seconds']:.2f} s, cached={info['cached']}) "
             f"ptxas: {' '.join(regs)} spills: {spills or 'none'}")
+        say("[1 build] the persistent K5: " + " | ".join(
+            ptxas_of(info["ptxas"], "pcg_persistent")))
     else:
         say("[1 build] skipped (rehearsal on the CPU)")
 
@@ -444,13 +471,35 @@ def rel_err(a, b):
                  / torch.linalg.vector_norm(b.double()))
 
 
+def clone_all(out):
+    return tuple(t.clone() for t in out)
+
+
+def chunk_errs(got, ref, chunk, what):
+    """(stats rows 0-1 rel err, x rel err, x max abs err) of two chunks
+    (x, r, p, z, stats) from one start; fails past 1e-5 (rows) or 1e-3
+    (x), phase 8's thresholds."""
+    rows = got[4][:2, :5].double()
+    rows_r = ref[4][:2, :5].double()
+    row_err = float(torch.linalg.vector_norm(rows - rows_r)
+                    / torch.linalg.vector_norm(rows_r))
+    x_err = rel_err(got[0], ref[0])
+    check(np.isfinite(row_err) and row_err <= 1e-5,
+          f"K5 vs {what}: stats rows 0-1 rel err {row_err:.3e} > 1e-5")
+    check(np.isfinite(x_err) and x_err <= 1e-3,
+          f"K5 vs {what}: x after {chunk} iterations rel err {x_err:.3e}")
+    return row_err, x_err, float((got[0] - ref[0]).abs().max())
+
+
 def slice2(dev, kern, A512, b512, n512, n2, nrefs):
     """Phases 7-11 (module docstring).  A512, b512: phase 5's system."""
     from tpuamg_torch import kernels
     from tpuamg_torch.amg.grid import grid_system, setup_grid
     from tpuamg_torch.krylov import pcg
+    from tpuamg_torch.amg.cycle_program import RESID_RESTRICT
     from tpuamg_torch.amg.grid_fused import (pcg_chunk, pcg_chunk_plain,
-                                             pcg_fused,
+                                             pcg_chunk_sequenced, pcg_fused,
+                                             persistent_grid,
                                              setup_grid_fused_pcg)
     from tpuamg_torch.config import PRESETS
     from tpuamg_torch.problems.solve import solve_system
@@ -461,7 +510,7 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
     t0 = time.perf_counter()
     A, b = system(GAMMA, n2)
     sizes = (A.shape[0] // 2,) * 2
-    grid = ((n2 + 1, n2 + 1), 2)
+    grid2 = ((n2 + 1, n2 + 1), 2)
     say(f"[7 setup] n={n2} dofs={A.shape[0]} nnz={A.nnz} assembly "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -469,7 +518,7 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
     nl_amli = replace(PRESETS["metric_schwarz"], cycle_type="nl_amli",
                       amli_degree=2, dtype="float32")
     t0 = time.perf_counter()
-    prec, gslots, nd = setup_grid(A, grid[0], F=2, params=nl_amli,
+    prec, gslots, nd = setup_grid(A, grid2[0], F=2, params=nl_amli,
                                   dtype=torch.float32, device=dev)
     sync(dev)
     t_set = time.perf_counter() - t0
@@ -527,7 +576,7 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
     # ---- 8. K5 against its plain chunk; routes (a) and (b) -------------
     drv = replace(PRESETS["metric_schwarz"], dtype="float32")
     t0 = time.perf_counter()
-    fp, slots, nflat = setup_grid_fused_pcg(A, grid[0], F=2, params=drv,
+    fp, slots, nflat = setup_grid_fused_pcg(A, grid2[0], F=2, params=drv,
                                             device=dev)
     sync(dev)
     t_set = time.perf_counter() - t0
@@ -546,57 +595,89 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
                 z0.clone(), torch.full((1,), -1.0, device=dev))
 
     kernels.reset_launches()
-    xk, _, _, _, st_k = pcg_chunk(fp, *start(), chunk)
-    xk, st_k = xk.clone(), st_k.clone()
+    got_k = clone_all(pcg_chunk(fp, *start(), chunk))
     sync(dev)
     per_chunk = dict(kernels.LAUNCHES)
     if on_card:
-        check(per_chunk.get("pcg_rz") == chunk + 1
-              and per_chunk.get("pcg_pq") == chunk
-              and per_chunk.get("pcg_xr") == chunk
-              and per_chunk.get("pcg_finish") == 1
-              and per_chunk.get("vcycle") == chunk,
-              f"K5 chunk launches {per_chunk}")
-    xp, _, _, _, st_p = pcg_chunk_plain(fp, *start(), chunk)
-    xp, st_p = xp.clone(), st_p.clone()
-    rows_k = st_k[:2, :5].double()
-    rows_p = st_p[:2, :5].double()
-    row_err = float(torch.linalg.vector_norm(rows_k - rows_p)
-                    / torch.linalg.vector_norm(rows_p))
-    x_err = rel_err(xk, xp)
-    abs_err = float((xk - xp).abs().max())
-    check(np.isfinite(row_err) and row_err <= 1e-5,
-          f"K5 vs plain: stats rows 0-1 rel err {row_err:.3e} > 1e-5")
-    check(np.isfinite(x_err) and x_err <= 1e-3,
-          f"K5 vs plain: x after {chunk} iterations rel err {x_err:.3e}")
-    ms = timed_ms(lambda: pcg_chunk(fp, *start(), chunk), 3 if on_card
+        check(per_chunk == {"pcg_chunk": 1},
+              f"K5: one persistent launch per chunk, got {per_chunk}")
+    got_p = clone_all(pcg_chunk_plain(fp, *start(), chunk))
+    row_err, x_err, abs_err = chunk_errs(got_k, got_p, chunk, "plain")
+    ms = timed_ms(lambda: pcg_chunk(fp, *start(), chunk), 5 if on_card
                   else 1, dev, warmup=1)
     plain_ms = timed_ms(lambda: pcg_chunk_plain(fp, *start(), chunk), 1,
                         dev, warmup=0)
+    seq = dict(ms=None, abs_err=None, text="not run (CUDA only)")
+    if on_card:
+        # the earlier design on the same run: 3 pcg.cu launches per
+        # iteration around K2's host-sequenced cycle
+        kernels.reset_launches()
+        got_s = clone_all(pcg_chunk_sequenced(fp, *start(), chunk))
+        sync(dev)
+        per_seq = dict(kernels.LAUNCHES)
+        check(per_seq.get("pcg_chunk_sequenced") == 1
+              and per_seq.get("pcg_pq") == chunk
+              and per_seq.get("vcycle") == chunk,
+              f"sequenced chunk launches {per_seq}")
+        s_rows, s_x, s_abs = chunk_errs(got_s, got_p, chunk, "plain")
+        k_rows, k_x, _ = chunk_errs(got_k, got_s, chunk, "sequenced")
+        seq["ms"] = timed_ms(lambda: pcg_chunk_sequenced(fp, *start(),
+                                                         chunk), 2, dev,
+                             warmup=1)
+        seq["abs_err"] = s_abs
+        seq["text"] = (
+            f"{seq['ms']:.4f} ms, {sum(per_seq.values()) - 1} launches "
+            f"(sequenced vs plain: rows {s_rows:.3e} x {s_x:.3e}; "
+            f"persistent vs sequenced: rows {k_rows:.3e} x {k_x:.3e})")
     nbytes, flops, stream = chunk_work(fp, chunk)
     bms, by = bound_ms(nbytes, flops)
-    visits = per_chunk.get("restrict", 0) / max(per_chunk.get("vcycle",
-                                                              1), 1)
-    say(f"[8 K5 pcg_chunk] {chunk} iterations from rz_prev=-1: stats rows "
-        f"0-1 rel err {row_err:.3e}, x rel err {x_err:.3e} max_abs_err "
-        f"{abs_err:.3e} | chunk {ms:.4f} ms ({ms / chunk:.4f} ms/iteration)"
-        f" plain {plain_ms:.4f} ms | bound {bms:.5f} ms ({by}, inputs once "
-        f"{nbytes} B); streamed {stream} B = "
-        f"{stream / HBM_BYTES_PER_S * 1e3:.5f} ms | launches per chunk "
-        f"{per_chunk} | level visits per cycle {visits:g} | library: none")
+    prog = fp.program()
+    grid = persistent_grid(fp) if on_card else None
+    say(f"[8 K5 pcg_chunk] {chunk} iterations from rz_prev=-1, one "
+        f"persistent launch (grid {grid} = (blocks, resident per SM, SMs) "
+        f"x 512 threads): stats rows 0-1 rel err {row_err:.3e}, "
+        f"x rel err {x_err:.3e} max_abs_err {abs_err:.3e} | chunk "
+        f"{ms:.4f} ms ({ms / chunk:.4f} ms/iteration) plain {plain_ms:.4f} "
+        f"ms | sequenced {seq['text']} | bound {bms:.5f} ms ({by}, inputs "
+        f"once {nbytes} B); streamed {stream} B = "
+        f"{stream / HBM_BYTES_PER_S * 1e3:.5f} ms | program: {len(prog)} "
+        f"ops per cycle, {prog.grid_barriers()} grid barriers, "
+        f"{prog.shared_bytes()} B of tables, {prog.counts()} | library: "
+        f"none")
     k5 = dict(name="pcg_chunk", route="cuda",
-              source="tpuamg_torch/csrc/pcg.cu",
+              source="tpuamg_torch/csrc/pcg_persistent.cu",
               replaces="tpuamg/amg/grid_fused.py:679", launches=0,
               max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
               bound_by=by, library_ms=None)
     kern.append(k5)
+    kern.append(dict(name="pcg_chunk_sequenced", route="cuda",
+                     source="tpuamg_torch/csrc/pcg.cu",
+                     replaces="tpuamg/amg/grid_fused.py:679", launches=0,
+                     max_abs_err=seq["abs_err"], ms=seq["ms"],
+                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                     library_ms=None))
+    if on_card:
+        prof = profile_busy(lambda: pcg_chunk(fp, *start(), chunk), dev)
+        if prof is None:
+            say("[8 profile chunk] not measured: the profiler saw no "
+                "device time")
+        else:
+            rows_prof, busy, wall = prof
+            kern_us = sum(u for kk, _, u in rows_prof
+                          if "pcg_persistent" in kk)
+            say(f"[8 profile chunk] device busy {busy:.1f} us (the "
+                f"persistent kernel {kern_us:.1f} us) of {wall * 1e6:.1f} "
+                f"us wall with the profiler on; idle share inside the "
+                f"chunk without it {1 - busy / (ms * 1e3):.4f} | "
+                + json.dumps([(kk, c, round(u, 1))
+                              for kk, c, u in rows_prof[:6]]))
 
     # the route-(a) solve through solve_system, as the driver runs it
     kernels.reset_launches()
     t0 = time.perf_counter()
     rep = solve_system(A, b, "metric_mono", sizes, params=PRESETS[
         "metric_schwarz"], tol=1e-8, maxiter=500, dtype=np.float32,
-        grid=grid, device=dev)
+        grid=grid2, device=dev)
     t_solve = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
     tr = float(np.linalg.norm(b - A.matvec(rep.x)) / np.linalg.norm(b))
@@ -604,40 +685,43 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
     check(rep.route == "a" and rep.converged and np.isfinite(tr)
           and tr < 1e-5, f"route (a) at n={n2}: route {rep.route}, "
           f"converged {rep.converged}, true rel residual {tr:.3e}")
+    # pcg_fused runs whole chunks and cuts the history at the crossing:
+    # the card runs more iterations than the solve counts
+    chunks = -(-rep.niters // ROUTE_A_CHUNK)
     if on_card:
-        for kname in K5_STEPS + K2_STEPS + ("pcg_chunk", "vcycle"):
-            check(counts.get(kname, 0) > 0,
-                  f"route (a): kernel {kname} not launched")
+        check(counts.get("pcg_chunk") == chunks
+              and not any(counts.get(kk) for kk in K5_STEPS)
+              and counts.get("vcycle") == 1,
+              f"route (a): {chunks} persistent launches, none of "
+              f"{K5_STEPS}, one K2 cycle (z0) expected, got {counts}")
         k5["launches"] = counts["pcg_chunk"]
+    ran = chunks * ROUTE_A_CHUNK
     it = max(rep.niters, 1)
-    # pcg_fused runs whole chunks (32) and cuts the history at the
-    # crossing: the card runs more iterations than the solve counts
-    ran = max(counts.get("vcycle", 0), 1)       # executed, + z0's cycle
     nnz_iter = A.nnz + vc.cycle_nnz()
     say(f"[8 route a] n={n2} solve_system: iterations {rep.niters} "
-        f"(executed {ran - 1} in whole chunks) reduction {red:.3e} true "
-        f"rel residual {tr:.3e} cond {rep.cond:.3f} | setup "
+        f"(executed {ran} in {chunks} whole chunks) reduction {red:.3e} "
+        f"true rel residual {tr:.3e} cond {rep.cond:.3f} | setup "
         f"{rep.t_setup:.2f} s solve {rep.t_solve:.4f} s "
         f"({rep.t_solve / it * 1e3:.3f} ms per counted iteration, "
-        f"{rep.t_solve / ran * 1e3:.3f} per executed cycle; wall "
+        f"{rep.t_solve / ran * 1e3:.3f} per executed iteration; wall "
         f"{t_solve:.2f} s) nnz/iteration {nnz_iter} nnz/s "
-        f"{nnz_iter * it / rep.t_solve:.4e} | launches {counts} | per "
-        f"executed iteration: " + ", ".join(
-            f"{kk} {counts.get(kk, 0) / max(ran - 1, 1):.3f}"
-            for kk in K5_STEPS + ("vcycle",)))
+        f"{nnz_iter * it / rep.t_solve:.4e} | launches {counts}")
     if on_card:
-        prof = profile_busy(lambda: pcg_fused(fp, bk, tol=0.0, maxiter=4,
-                                              chunk=4), dev)
+        t0 = time.perf_counter()
+        pcg_fused(fp, bk, tol=1e-8, maxiter=500)
+        sync(dev)
+        t_a = time.perf_counter() - t0
+        prof = profile_busy(lambda: pcg_fused(fp, bk, tol=1e-8,
+                                              maxiter=500), dev)
         if prof is None:
             say("[8 profile] not measured: the profiler saw no device time")
         else:
             rows_prof, busy, wall = prof
-            per_it = busy / 5        # 4 iterations + the start's cycle
-            say(f"[8 profile] route (a), 4 iterations: device busy "
-                f"{busy:.1f} us ({per_it:.1f} us per iteration, the start "
-                f"counted as one) of {wall * 1e6:.1f} us wall with the "
-                f"profiler on; idle share without it "
-                f"{1 - per_it * ran / (rep.t_solve * 1e6):.4f}")
+            say(f"[8 profile] route (a) pcg_fused at n={n2} ({ran} "
+                f"iterations executed + the start's cycle): device busy "
+                f"{busy:.1f} us of {wall * 1e6:.1f} us wall with the "
+                f"profiler on; without it {t_a * 1e6:.1f} us, idle share "
+                f"{1 - busy / (t_a * 1e6):.4f}")
             say("[8 profile] device us by kernel (calls, total): "
                 + json.dumps([(kk, c, round(u, 1))
                               for kk, c, u in rows_prof[:12]]))
@@ -660,15 +744,27 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
     res5 = pcg_fused(fp5, bk5, tol=1e-8, maxiter=500)
     sync(dev)
     t5 = time.perf_counter() - t0
-    ran5 = max(kernels.LAUNCHES["vcycle"], 1)
+    counts5 = dict(kernels.LAUNCHES)
+    chunks5 = -(-res5.niters // ROUTE_A_CHUNK)
+    if on_card:
+        check(counts5.get("pcg_chunk") == chunks5
+              and not any(counts5.get(kk) for kk in K5_STEPS),
+              f"route (a) at n={n512}: launches {counts5}")
+    ran5 = chunks5 * ROUTE_A_CHUNK
     x5 = res5.x.double().cpu().numpy()[slots5]
     tr5 = float(np.linalg.norm(b512 - A512.matvec(x5))
                 / np.linalg.norm(b512))
+    prog5 = fp5.program()
     say(f"[8 route a n={n512}] iterations {res5.niters} (executed "
-        f"{ran5 - 1}) true rel residual {tr5:.3e} | {t5:.3f} s, "
-        f"{t5 / max(res5.niters, 1) * 1e3:.3f} ms per counted iteration, "
-        f"{t5 / ran5 * 1e3:.3f} per executed cycle | level visits per "
-        f"cycle {kernels.LAUNCHES['restrict'] / ran5:g}")
+        f"{ran5} in {chunks5} chunks) true rel residual {tr5:.3e} | "
+        f"{t5:.3f} s, {t5 / max(res5.niters, 1) * 1e3:.3f} ms per counted "
+        f"iteration, {t5 / ran5 * 1e3:.3f} per executed iteration (and "
+        f"cycle) | program: {len(prog5)} ops per cycle, "
+        f"{prog5.grid_barriers()} grid barriers, level visits per cycle "
+        f"{sum(op.kind == RESID_RESTRICT for op in prog5.ops)} | launches "
+        f"{counts5}")
+    check(res5.converged and np.isfinite(tr5) and tr5 < 1e-5,
+          f"route (a) at n={n512}: true rel residual {tr5:.3e}")
     check(res5.converged, f"route (a) at n={n512} did not converge")
     route_pair(fp5, bk5, fp5.vc, A512, b512, slots5, n512, dev,
                res5.niters, plain=False, ms_a=t5 / max(res5.niters, 1))
@@ -680,7 +776,7 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
         kernels.reset_launches()
         rep_c = solve_system(A, b, "metric_mono", sizes, params=nl_amli,
                              tol=1e-6, maxiter=200, dtype=np.float32,
-                             grid=grid, pallas=pallas, device=dev)
+                             grid=grid2, pallas=pallas, device=dev)
         counts = dict(kernels.LAUNCHES)
         trc = float(np.linalg.norm(b - A.matvec(rep_c.x))
                     / np.linalg.norm(b))
@@ -784,8 +880,8 @@ def slice3(dev, kern, A512, b512, n512):
             f"{time.perf_counter() - t0:.2f} s: {prob.info}, level rows "
             f"{[L.A.shape[0] for L in prob.prec.levels]}")
         k6 = phase12(dev, kern, prob)
-        k7 = phase13(dev, kern, prob)
-        phase14(dev, prob, A512, b512, dims, mesh, k6, k7)
+        k_pad = phase13(dev, kern, prob)
+        phase14(dev, prob, A512, b512, dims, mesh, k6, k_pad)
         del prob
         phase15(dev, mesh)
     finally:
@@ -896,7 +992,8 @@ def phase12(dev, kern, prob):
 
 
 def phase13(dev, kern, prob):
-    """K7's counterpart: the whole-vector SpMV over a zero-padded x."""
+    """K7's counterpart: dia_spmv_pallas, K1 on the unpadded x; beside it
+    the padded-x launch alone, the distributed outer SpMV's entry."""
     from tpuamg_torch import kernels
     from tpuamg_torch.sparse.dia import DIA
     from tpuamg_torch.sparse.dia_kernels import (dia_spmv, dia_spmv_pallas,
@@ -920,12 +1017,14 @@ def phase13(dev, kern, prob):
     for label, D in cases:
         x = torch.as_tensor(rng.standard_normal(D.shape[0]),
                             dtype=torch.float32).to(dev)
-        before = kernels.LAUNCHES["dia_spmv_pad"]
+        before = dict(kernels.LAUNCHES)
         yk = dia_spmv_pallas(D, x)
         yp = dia_spmv_plain(D.offsets, D.data, x)
         sync(dev)
-        check(not on_card or kernels.LAUNCHES["dia_spmv_pad"] == before + 1,
-              "dia_spmv_pallas: one padded-x launch")
+        got = {k: kernels.LAUNCHES[k] - before.get(k, 0)
+               for k in ("dia_spmv", "dia_spmv_pad")}
+        check(not on_card or got == {"dia_spmv": 1, "dia_spmv_pad": 0},
+              f"dia_spmv_pallas: one unpadded K1 launch, got {got}")
         errs[label] = float((yk - yp).abs().max() / yp.abs().max())
         abs_err = max(abs_err, float((yk - yp).abs().max()))
     check(all(np.isfinite(e) and e <= 1e-5 for e in errs.values()),
@@ -938,35 +1037,59 @@ def phase13(dev, kern, prob):
     xp = torch.zeros(n + 2 * pad, device=dev)
     xp[pad:pad + n] = x
     y = torch.empty_like(x)
-    ms_launch = timed_ms(lambda: dia_spmv(outer.offsets, outer.data, xp,
-                                          out=y, x_pad=pad), reps, dev)
+    ms_pad = timed_ms(lambda: dia_spmv(outer.offsets, outer.data, xp,
+                                       out=y, x_pad=pad), reps, dev)
+    check(not on_card or torch.equal(y, dia_spmv_pallas(outer, x)),
+          "the padded-x launch and dia_spmv_pallas differ")
     plain_ms = timed_ms(lambda: dia_spmv_plain(outer.offsets, outer.data, x),
                         max(reps // 20, 2), dev)
+    # the kernel's own device time, apart from the host's per-call cost
+    dev_us = "not measured"
+    if on_card:
+        prof = profile_busy(lambda: [dia_spmv_pallas(outer, x)
+                                     for _ in range(20)], dev)
+        if prof is not None:
+            dev_us = "%.2f us" % (sum(u for kk, _, u in prof[0]
+                                      if "dia_sweep_kernel" in kk) / 20)
     nbytes = outer.data.numel() * outer.data.element_size() + 4 * n * 2
     flops = 2 * outer.data.numel()
     bms, by = bound_ms(nbytes, flops)
+    bms_pad, by_pad = bound_ms(nbytes + 4 * 2 * pad, flops)
     csr_host = outer.to_host()
 
     def make_library_call():
         M = csr_of(csr_host, dev)
         return lambda: M @ x
     lib = library_ms(make_library_call, reps, dev)
-    say(f"[13 K7 dia_spmv_pallas] K1 padded-x entry over a zero-padded x: "
-        f"rel err {errs} max_abs_err {abs_err:.3e} | outer n={n}, "
-        f"{len(outer.offsets)} offsets: {ms:.5f} ms (pad copy + launch; "
-        f"the launch alone {ms_launch:.5f} ms) "
-        f"plain {plain_ms:.5f} ms csr-library {lib} ms | bound {bms:.5f} "
-        f"ms ({by}, {nbytes} B) -> {bms / ms:.3f} of bound")
-    row = dict(name="dia_spmv_pad", route="cuda",
+    say(f"[13 K7 dia_spmv_pallas] K1 on the unpadded x (dia_sweep_kernel; "
+        f"one dia_spmv and no dia_spmv_pad launch per call in each of "
+        f"{len(cases)} cases): rel err {errs} "
+        f"max_abs_err {abs_err:.3e} | outer n={n}, {len(outer.offsets)} "
+        f"offsets: {ms:.5f} ms per call, device time {dev_us} per launch "
+        f"(the padded-x launch on a buffer padded once {ms_pad:.5f} ms) "
+        f"plain {plain_ms:.5f} ms csr-library {lib} "
+        f"ms | bound {bms:.5f} ms ({by}, {nbytes} B) -> {bms / ms:.3f} of "
+        f"bound")
+    # no route of either package calls dia_spmv_pallas, so no main path
+    # launches it; the launch check above (one dia_spmv, no dia_spmv_pad
+    # per call) is its evidence.  Its kernel is K1's dia_sweep_kernel,
+    # whose main-path launches are row dia_spmv's.
+    row = dict(name="dia_spmv_pallas", route="cuda",
                source="tpuamg_torch/csrc/dia.cu",
-               replaces="tpuamg/sparse/pallas_kernels.py:37", launches=0,
-               max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-               bound_by=by, library_ms=lib)
-    kern.append(row)
-    return row
+               replaces="tpuamg/sparse/pallas_kernels.py:37",
+               launches=0, max_abs_err=abs_err, ms=ms,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               library_ms=lib)
+    pad_row = dict(name="dia_spmv_pad", route="cuda",
+                   source="tpuamg_torch/csrc/dia.cu",
+                   replaces="tpuamg/sparse/dia_pallas.py:198", launches=0,
+                   max_abs_err=abs_err, ms=ms_pad, plain_ms=plain_ms,
+                   bound_ms=bms_pad, bound_by=by_pad, library_ms=lib)
+    kern.extend([row, pad_row])
+    return pad_row
 
 
-def phase14(dev, prob, A, b, dims, mesh, k6, k7):
+def phase14(dev, prob, A, b, dims, mesh, k6, k_pad):
     """The slice at full width: distributed_grid_solve at n=512 with the
     kernels and with pallas=False."""
     from tpuamg_torch import kernels
@@ -1001,7 +1124,7 @@ def phase14(dev, prob, A, b, dims, mesh, k6, k7):
                     check(counts.get(kname, 0) > 0,
                           f"distributed solve: kernel {kname} not launched")
                 k6["launches"] = counts["cheb_step"]
-                k7["launches"] = counts["dia_spmv_pad"]
+                k_pad["launches"] = counts["dia_spmv_pad"]
                 # one outer SpMV per executed iteration, and one for r0
                 ran = counts["dia_spmv_pad"] - 1
                 say(f"[14 launches] per executed iteration ({ran}): "

@@ -188,10 +188,10 @@ def test_fused_cheb_smoother_kernel_on_grid_level():
 
 
 # ---------------------------------------------------------------------------
-# K5: the PCG chunk
+# K5: the PCG chunk as one persistent cooperative launch
 # ---------------------------------------------------------------------------
 
-def _pcg_setup(dev, cycle, n=32, gamma=1e6):
+def _pcg_setup(dev, cycle, n=32, gamma=1e6, storage=None, **prm_kw):
     from dataclasses import replace
     from tpuamg_torch.amg.grid_fused import setup_grid_fused_pcg
     from tpuamg_torch.config import PRESETS
@@ -200,77 +200,154 @@ def _pcg_setup(dev, cycle, n=32, gamma=1e6):
     p = Params(2.0, 3.0, gamma)
     A, b, _, _ = get_system(get_mesh(n, 2), mms.setup_bidomain_mms(p, 2), p)
     prm = replace(PRESETS["metric_schwarz"], dtype="float32",
-                  cycle_type=cycle)
+                  cycle_type=cycle, **prm_kw)
     fp, slots, nflat = setup_grid_fused_pcg(A, (n + 1, n + 1), F=2,
-                                            params=prm, device=dev)
+                                            params=prm,
+                                            storage_dtype=storage,
+                                            device=dev)
     bk = torch.zeros(nflat, dtype=torch.float32)
     bk[torch.as_tensor(slots)] = torch.as_tensor(b, dtype=torch.float32)
     return fp, bk.to(dev)
 
 
-@pytest.mark.parametrize("cycle", ["v", "w"])
-def test_pcg_chunk_kernel_matches_plain(cycle):
-    """The first chunk (rz_prev = -1: beta = 0) and a second one that
-    carries rz: stats rows and x against the plain chunk."""
-    from tpuamg_torch import kernels
-    from tpuamg_torch.amg.grid_fused import pcg_chunk, pcg_chunk_plain
-    dev = _card()
-    fp, bk = _pcg_setup(dev, cycle)
-    vc = fp.vc
-    bm = bk * vc.mask_flat
-    z0 = vc.matvec(bm)
+def _chunk_start(fp, bk):
+    """The first chunk's inputs (x = 0, r = b, p = 0, z = M b, rz_prev =
+    -1: beta = 0) as a function that makes fresh copies."""
+    bm = bk * fp.vc.mask_flat
+    z0 = fp.vc.matvec(bm).clone()
+    return lambda: (torch.zeros_like(bm), bm.clone(), torch.zeros_like(bm),
+                    z0.clone(), torch.full((1,), -1.0, device=bm.device))
 
-    def start():
-        return (torch.zeros_like(bm), bm.clone(), torch.zeros_like(bm),
-                z0.clone(), torch.full((1,), -1.0, device=dev))
 
-    chunk = 4
-    kernels.reset_launches()
-    x, r, p, z, st = pcg_chunk(fp, *start(), chunk)
-    st = st.clone()
-    x, r, p, z = (t.clone() for t in (x, r, p, z))
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["pcg_rz"] == chunk + 1
-    assert kernels.LAUNCHES["pcg_pq"] == kernels.LAUNCHES["pcg_xr"] == chunk
-    assert kernels.LAUNCHES["pcg_finish"] == 1
-    assert kernels.LAUNCHES["vcycle"] == chunk
-    xp, rp, pp, zp, stp = pcg_chunk_plain(fp, *start(), chunk)
-    stp = stp.clone()
-    xp, rp, pp, zp = (t.clone() for t in (xp, rp, pp, zp))
-    # rows 0-1 (alpha, beta, sqrt|rz|, ||r||, ||x||): f32 relative error
-    # 1e-5 over the rows, 1e-4 per entry.  The two chunks run different
-    # f32 sum orders (K1/K2 against the plain SpMV and cycle), which the
-    # cancellation in r = r - alpha q amplifies to ~1e-5 per entry at
-    # gamma 1e6
+# The limits on stats rows 0-1 at n=32, by gamma: (relative error over
+# the rows, relative error of one entry).  At gamma 1e6 the first
+# iteration removes all but ~1e-5 of rz, and the cancellation in
+# r = r - alpha q amplifies one f32 rounding to ~1e-5 of the rows and
+# ~1e-4 of an entry: two f32 chunks that differ only in where they round
+# disagree by that much.  scripts/torch_chunk_row_noise.py measures it
+# with the plain chunk, its starting z shared (CPU): fused updates, q =
+# Q p accumulated in f64, or 1e-7 relative noise in every cycle's z move
+# the first chunk's rows by up to 2.1e-5 and an entry by up to 8.9e-5,
+# the second chunk's entries by up to 1.005e-4.  So 4e-5 and 2.5e-4 at
+# gamma 1e6.  The control, a cycle whose z is 5e-4 too large, moves an
+# entry by 5.0e-4 and fails (test_pcg_chunk_kernel_matches_plain).
+ROWS_RTOL = {1.0: (1e-5, 1e-4), 1e6: (4e-5, 2.5e-4)}
+
+
+def _check_chunks(got, ref, chunk, rtol=ROWS_RTOL[1.0]):
+    """Two chunks from one start: stats rows 0-1 (alpha, beta, sqrt|rz|,
+    ||r||, ||x||) to rtol = (over the rows, per entry) (ROWS_RTOL), x to
+    1e-3.  Later iterations drift apart by the rows' f32
+    noise, as the JAX package's fused and unfused PCG do
+    (tests/test_grid_fused_pcg.py: 5e-2)."""
+    x, st = got[0], got[4]
+    xp, stp = ref[0], ref[4]
     rows = st[:2, :5].double().cpu().numpy()
     rows_p = stp[:2, :5].double().cpu().numpy()
-    assert np.linalg.norm(rows - rows_p) <= 1e-5 * np.linalg.norm(rows_p)
-    np.testing.assert_allclose(rows, rows_p, rtol=1e-4)
-    # later iterations drift apart by that noise, as the JAX package's
-    # fused and unfused PCG do (tests/test_grid_fused_pcg.py: 5e-2)
+    assert np.linalg.norm(rows - rows_p) <= rtol[0] * np.linalg.norm(
+        rows_p)
+    np.testing.assert_allclose(rows, rows_p, rtol=rtol[1])
     np.testing.assert_allclose(st[chunk, :2].double().cpu().numpy(),
                                stp[chunk, :2].double().cpu().numpy(),
                                rtol=5e-2)
-    err = float(torch.linalg.vector_norm(x - xp)
-                / torch.linalg.vector_norm(xp))
-    assert err < 1e-3, err
+    assert _rel(x, xp) < 1e-3
+
+
+def _clone_all(out):
+    return tuple(t.clone() for t in out)
+
+
+@pytest.mark.parametrize("storage,gamma", [
+    (torch.float32, 1e6),
+    # gamma 1 for bf16 planes: at gamma 1e6 the bf16 W-cycle is nearly
+    # indefinite here (alpha 2.7e-8)
+    (torch.float32, 1.0), (torch.bfloat16, 1.0)])
+@pytest.mark.parametrize("cycle", ["v", "w"])
+def test_pcg_chunk_kernel_matches_plain(cycle, storage, gamma):
+    """The persistent chunk (one launch, the cycle inside) against the
+    plain chunk: the first chunk (rz_prev = -1: beta = 0) and a second
+    one that carries rz.  Control: a plain chunk whose cycle returns z
+    5e-4 too large fails the same check."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg.grid_fused import (pcg_chunk, pcg_chunk_plain,
+                                             vcycle_plain)
+    dev = _card()
+    fp, bk = _pcg_setup(dev, cycle, storage=storage, gamma=gamma)
+    start = _chunk_start(fp, bk)
+    chunk = 4
+    kernels.reset_launches()
+    got = _clone_all(pcg_chunk(fp, *start(), chunk))
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"pcg_chunk": 1}
+    ref = _clone_all(pcg_chunk_plain(fp, *start(), chunk))
+    _check_chunks(got, ref, chunk, ROWS_RTOL[gamma])
+    bad = _clone_all(pcg_chunk_plain(
+        fp, *start(), chunk, cycle=lambda vc, r: vcycle_plain(vc, r)
+        * (1 + 5e-4)))
+    with pytest.raises(AssertionError):
+        _check_chunks(bad, ref, chunk, ROWS_RTOL[gamma])
     # a second chunk carries rz across: both continue from the kernel's
     # state
+    x, r, p, z, st = got
     carry = st[chunk, 1:2].clone()
-    x2, _, _, _, st2 = pcg_chunk(fp, x.clone(), r.clone(), p.clone(),
-                                 z.clone(), carry, chunk)
-    st2 = st2.clone()
-    _, _, _, _, st2p = pcg_chunk_plain(fp, x.clone(), r.clone(), p.clone(),
-                                       z.clone(), carry, chunk)
+    st2 = pcg_chunk(fp, x.clone(), r.clone(), p.clone(), z.clone(), carry,
+                    chunk)[4].clone()
+    st2p = pcg_chunk_plain(fp, x.clone(), r.clone(), p.clone(), z.clone(),
+                           carry, chunk)[4]
     np.testing.assert_allclose(st2[:2, :5].double().cpu().numpy(),
                                st2p[:2, :5].double().cpu().numpy(),
-                               rtol=1e-4)
+                               rtol=ROWS_RTOL[gamma][1])
+
+
+@pytest.mark.parametrize("gamma", [1e6, 1.0])
+@pytest.mark.parametrize("cycle", ["v", "w"])
+def test_pcg_chunk_kernel_matches_sequenced(cycle, gamma):
+    """The persistent chunk against the earlier design, three pcg.cu
+    launches per iteration around K2's host-sequenced cycle."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg.grid_fused import pcg_chunk, pcg_chunk_sequenced
+    dev = _card()
+    fp, bk = _pcg_setup(dev, cycle, gamma=gamma)
+    start = _chunk_start(fp, bk)
+    chunk = 4
+    kernels.reset_launches()
+    seq = _clone_all(pcg_chunk_sequenced(fp, *start(), chunk))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pcg_chunk_sequenced"] == 1
+    assert kernels.LAUNCHES["pcg_pq"] == kernels.LAUNCHES["vcycle"] == chunk
+    assert kernels.LAUNCHES["pcg_chunk"] == 0
+    got = _clone_all(pcg_chunk(fp, *start(), chunk))
+    _check_chunks(got, seq, chunk, ROWS_RTOL[gamma])
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cycle,pre", [("v", 1), ("w", 1), ("w", 0)])
+def test_pcg_chunk_kernel_every_op_kind(cycle, pre, storage):
+    """n=16, coarse_dof 20, gamma 1: three smoothed levels (n
+    3072/1536/768) and a coarse T of 147,456 entries, so every op kind
+    runs; pre-smoothing 1 has cold steps, 0 the ZERO op."""
+    from tpuamg_torch.amg import cycle_program as cp
+    from tpuamg_torch.amg.grid_fused import pcg_chunk, pcg_chunk_plain
+    dev = _card()
+    fp, bk = _pcg_setup(dev, cycle, n=16, gamma=1.0, storage=storage,
+                        coarse_dof=20, presmooth_iter=pre)
+    assert len(fp.vc.spec.levels) == 3
+    prog = fp.program()
+    kinds = {cp.OP_NAMES[op.kind] for op in prog.ops}
+    assert kinds == set(cp.OP_NAMES) - {"ZERO" if pre else ""}
+    assert any(op.cold for op in prog.ops) == bool(pre)
+    start = _chunk_start(fp, bk)
+    got = _clone_all(pcg_chunk(fp, *start(), 3))
+    torch.cuda.synchronize()
+    ref = _clone_all(pcg_chunk_plain(fp, *start(), 3))
+    _check_chunks(got, ref, 3)
 
 
 @pytest.mark.parametrize("cycle", ["v", "w"])
 def test_pcg_fused_kernel_crosses_tolerance_mid_chunk(cycle):
-    """pcg_fused through K5 against the same host loop over the plain
-    chunk: the history is cut at the first crossing, inside a chunk."""
+    """pcg_fused through the persistent K5 against the same host loop over
+    the plain chunk: the history is cut at the first crossing, inside a
+    chunk; one launch per chunk and no sequenced launch."""
     from tpuamg_torch import kernels
     from tpuamg_torch.amg.grid_fused import pcg_fused, pcg_chunk_plain
     dev = _card()
@@ -289,30 +366,45 @@ def test_pcg_fused_kernel_crosses_tolerance_mid_chunk(cycle):
     assert abs(got.niters - ref.niters) <= 1
     n_chunks = kernels.LAUNCHES["pcg_chunk"]
     assert n_chunks == -(-got.niters // chunk)
-    assert kernels.LAUNCHES["pcg_pq"] == chunk * n_chunks
-    assert kernels.LAUNCHES["pcg_rz"] == (chunk + 1) * n_chunks
+    for name in ("pcg_rz", "pcg_pq", "pcg_xr", "pcg_finish"):
+        assert kernels.LAUNCHES[name] == 0, name
+    assert kernels.LAUNCHES["vcycle"] == 1          # z0 only
     np.testing.assert_allclose(got.residuals[:2], ref.residuals[:2],
                                rtol=1e-4)
     np.testing.assert_allclose(got.alphas[:2], ref.alphas[:2], rtol=1e-4)
 
 
 def test_pcg_chunk_kernel_is_deterministic():
-    """Fixed-order reductions: the same chunk from the same state gives
-    the same bits."""
+    """Fixed-order reductions on a fixed grid: the same chunk from the
+    same state gives the same bits."""
     from tpuamg_torch.amg.grid_fused import pcg_chunk
     dev = _card()
     fp, bk = _pcg_setup(dev, "w")
-    bm = bk * fp.vc.mask_flat
-    z0 = fp.vc.matvec(bm)
-    outs = []
-    for _ in range(2):
-        x, r, p, z, st = pcg_chunk(
-            fp, torch.zeros_like(bm), bm.clone(), torch.zeros_like(bm),
-            z0.clone(), torch.full((1,), -1.0, device=dev), 5)
-        outs.append((x.clone(), st.clone()))
+    start = _chunk_start(fp, bk)
+    outs = [_clone_all(pcg_chunk(fp, *start(), 5)) for _ in range(2)]
     torch.cuda.synchronize()
-    assert torch.equal(outs[0][0], outs[1][0])
-    assert torch.equal(outs[0][1], outs[1][1])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_pcg_chunk_kernel_too_large_grid_raises():
+    """A grid that cannot be co-resident is refused by the cooperative
+    launch, and the wrapper raises naming the grid and the occupancy;
+    nothing falls back to the sequenced chunk."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg.grid_fused import (_pcg_chunk_persistent,
+                                             pcg_chunk, persistent_grid)
+    dev = _card()
+    fp, bk = _pcg_setup(dev, "v", n=16)
+    start = _chunk_start(fp, bk)
+    _, per_sm, sms = persistent_grid(fp)
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="resident blocks per SM"):
+        _pcg_chunk_persistent(fp, *start(), 2, _grid=per_sm * sms + 1)
+    assert not any(kernels.LAUNCHES.values())
+    pcg_chunk(fp, *start(), 2)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pcg_chunk"] == 1
 
 
 # ---------------------------------------------------------------------------

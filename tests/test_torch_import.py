@@ -15,6 +15,7 @@ import tpuamg_torch
 import tpuamg_torch.kernels, tpuamg_torch.state
 import tpuamg_torch.sparse.dia, tpuamg_torch.sparse.dia_kernels
 import tpuamg_torch.amg.grid_fused, tpuamg_torch.krylov.cg
+import tpuamg_torch.amg.cycle_program
 import tpuamg_torch.problems.bidomain, tpuamg_torch.fem.mms
 import tpuamg_torch.problems.solve, tpuamg_torch.problems.bidomain_2d
 import tpuamg_torch.problems.driver, tpuamg_torch.amg.grid

@@ -21,14 +21,21 @@ coarse GEMV); with CPU tensors the same sequence runs the plain torch
 versions defined here (``vcycle_plain`` runs them on any device).
 
 Around the cycle: ``FusedPCG`` / ``pcg_fused`` run PCG in chunks of
-iterations with no host read inside a chunk (kernel K5, csrc/pcg.cu, with
-K2's cycle as the preconditioner; ``pcg_chunk_plain`` is its plain
-version), and ``setup_grid_fused(reference=True)`` also returns the f64
+iterations with no host read inside a chunk.  On the card a chunk is ONE
+persistent cooperative launch of kernel K5 (csrc/pcg_persistent.cu),
+which runs the PCG body and the cycle, compiled once into an op program
+(amg/cycle_program.py), inside the kernel; ``pcg_chunk_plain`` is its
+plain version.  ``pcg_chunk_sequenced`` keeps the earlier design (three
+csrc/pcg.cu launches per iteration around K2's host-sequenced cycle) for
+comparison on the card; no route takes it.
+``setup_grid_fused(reference=True)`` also returns the f64
 ``MGPreconditioner`` of the same padded hierarchy, the step-by-step
 reference of both.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -41,6 +48,7 @@ from ..sparse import HostCSR
 from ..sparse.dia_kernels import (KernelDIA, _cheb_coefs, blockinv_dia,
                                   dia_spmv, dia_spmv_plain)
 from ..sparse.dia import DIA
+from .cycle_program import CycleProgram
 from .grid import _grid_coarse, _lmax_blockinv, _node_blocks
 from .hierarchy import MGPreconditioner
 from .structured import BlockChebyshevSmoother
@@ -680,13 +688,13 @@ def grid_system_fused(A_host: HostCSR, slots, nflat, dtype=torch.float32,
 
 
 # ---------------------------------------------------------------------------
-# Chunked fused PCG: kernel K5 (csrc/pcg.cu) and its plain version
+# Chunked fused PCG: kernel K5 (csrc/pcg_persistent.cu) and its plain version
 # ---------------------------------------------------------------------------
 #
 # A chunk is `chunk` complete PCG iterations with no host read inside:
 #   rz = r.z;  beta = rz / rz_prev (0 while rz_prev <= 0);
 #   p = z + beta p;  q = Q p;  alpha = rz / (p.q + tiny);
-#   x += alpha p;  r -= alpha q;  z = M r  (the whole K2 cycle, r its rhs)
+#   x += alpha p;  r -= alpha q;  z = M r  (the whole cycle, r its rhs)
 # with x0 = 0 and z0 = M(b mask) computed before the first chunk.  The
 # stats rows follow the JAX package's layout: row it = (alpha, beta,
 # sqrt|rz|, ||r||, ||x||, 0...) with row it's beta and sqrt|rz| those of
@@ -695,14 +703,17 @@ def grid_system_fused(A_host: HostCSR, slots, nflat, dtype=torch.float32,
 
 _TINY32 = 1e-30
 STATS_LANES = LANES
-MAX_PARTS = 512     # per-block partial sums of a K5 reduction (pcg.cu)
+MAX_PARTS = 512     # per-block partial sums of a pcg.cu reduction
 
 
-def pcg_chunk_plain(fp: "FusedPCG", x, r, p, z, rz_prev, chunk):
+def pcg_chunk_plain(fp: "FusedPCG", x, r, p, z, rz_prev, chunk,
+                    cycle=None):
     """One chunk in torch ops on the kernel-flat layout (any device).
-    x and r are updated in place; returns (x, r, p, z, stats)."""
+    x and r are updated in place; returns (x, r, p, z, stats).  cycle(vc,
+    r) -> z is the preconditioner, vcycle_plain by default."""
     vc = fp.vc
     Q = fp.Q
+    cycle = vcycle_plain if cycle is None else cycle
     stats = torch.zeros((chunk + 1, STATS_LANES), dtype=torch.float32,
                         device=x.device)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -721,7 +732,7 @@ def pcg_chunk_plain(fp: "FusedPCG", x, r, p, z, rz_prev, chunk):
         stats[it, 0] = alpha
         stats[it, 3] = torch.linalg.vector_norm(r)
         stats[it, 4] = torch.linalg.vector_norm(x)
-        z = vcycle_plain(vc, r)
+        z = cycle(vc, r)
         rz_last = rz
     rz_t = torch.dot(r, z)
     stats[chunk - 1, 1] = torch.where(rz_last > 0,
@@ -733,45 +744,62 @@ def pcg_chunk_plain(fp: "FusedPCG", x, r, p, z, rz_prev, chunk):
 
 
 class _PCGWork:
-    """Device scratch of the K5 chunk: two p buffers (p is never updated
-    in place: blocks read it at neighbouring offsets), q, the per-block
-    partial sums, the rz history and the stats rows."""
+    """Device scratch of a chunk on the card: two p buffers (p is never
+    updated in place: blocks read it at neighbouring offsets), q, the
+    per-block partial sums (pcg.cu's three sets of MAX_PARTS, or the
+    persistent kernel's four of `grid`), the rz history and the stats
+    rows."""
 
-    def __init__(self, n, chunk, device):
+    def __init__(self, n, chunk, device, grid=0):
         f32 = dict(dtype=torch.float32, device=device)
         self.p = (torch.zeros(n, **f32), torch.zeros(n, **f32))
         self.q = torch.zeros(n, **f32)
         self.rz_parts = torch.zeros(MAX_PARTS, **f32)
         self.pq_parts = torch.zeros(MAX_PARTS, **f32)
         self.norm_parts = torch.zeros(2 * MAX_PARTS, **f32)
+        self.parts = torch.zeros(4 * max(grid, 1), **f32)
         self.rzbuf = torch.zeros(chunk + 1, **f32)
         self.stats = torch.zeros((chunk + 1, STATS_LANES), **f32)
         self.chunk = chunk
+        self.grid = grid
 
 
-def _pcg_chunk_cuda(fp: "FusedPCG", x, r, p, z, rz_prev, chunk):
+def _chunk_inputs(fp: "FusedPCG", x, r, p, z, rz_prev, chunk, grid=0):
+    """Check the chunk's tensors, (re)make the runner's scratch, and move
+    z into the cycle's fine x buffer and p into a p buffer.  Returns
+    (work, z buffer, index of the p buffer holding p)."""
     vc = fp.vc
-    Q = fp.Q
     n = vc.nflat
     dev = vc.device
     for name, t in (("x", x), ("r", r), ("p", p), ("z", z)):
         kernels.require(t, name, dtype=torch.float32, numel=n, device=dev)
     kernels.require(rz_prev, "rz_prev", dtype=torch.float32, numel=1,
                     device=dev)
-    kernels.require(Q.planes, "Q planes", dtype=torch.float32,
-                    numel=len(Q.offsets) * n, device=dev)
-    if fp._work is None or fp._work.chunk != chunk:
-        fp._work = _PCGWork(n, chunk, dev)
+    kernels.require(fp.Q.planes, "Q planes", dtype=torch.float32,
+                    numel=len(fp.Q.offsets) * n, device=dev)
     w = fp._work
+    if w is None or w.chunk != chunk or w.grid < grid:
+        w = fp._work = _PCGWork(n, chunk, dev, grid)
     zb = vc._x[0]                    # the cycle writes z here
     if z.data_ptr() != zb.data_ptr():
         zb.copy_(z)
     if p.data_ptr() == w.p[1].data_ptr():
-        cur = 1
-    else:
-        cur = 0
-        if p.data_ptr() != w.p[0].data_ptr():
-            w.p[0].copy_(p)
+        return w, zb, 1
+    if p.data_ptr() != w.p[0].data_ptr():
+        w.p[0].copy_(p)
+    return w, zb, 0
+
+
+def pcg_chunk_sequenced(fp: "FusedPCG", x, r, p, z, rz_prev, chunk):
+    """The earlier design of K5, kept to time it beside the persistent
+    kernel on the card: per iteration three csrc/pcg.cu launches (pcg_rz,
+    pcg_pq, pcg_xr) and K2's host-sequenced cycle, then pcg_rz and
+    pcg_finish.  CUDA tensors only; no route calls it.  Same contract as
+    pcg_chunk."""
+    vc = fp.vc
+    Q = fp.Q
+    n = vc.nflat
+    w, zb, cur = _chunk_inputs(fp, x, r, p, z, rz_prev, chunk)
     w.rzbuf[:1].copy_(rz_prev.reshape(1))
     w.stats.zero_()
     lib = kernels.lib()
@@ -807,18 +835,107 @@ def _pcg_chunk_cuda(fp: "FusedPCG", x, r, p, z, rz_prev, chunk):
         w.rzbuf.data_ptr(), chunk, w.stats.data_ptr(), stream),
         "pcg_finish")
     kernels.LAUNCHES["pcg_finish"] += 1
-    kernels.LAUNCHES["pcg_chunk"] += 1
+    kernels.LAUNCHES["pcg_chunk_sequenced"] += 1
     return x, r, w.p[cur], zb, w.stats
 
 
+# the host argument vector of tpuamg_pcg_persistent, in its order
+_PERSISTENT_ARGS = ("levels", "nlevels", "ops", "nops", "Q_planes", "x", "r",
+                    "p0", "p1", "q", "z", "n", "parts", "rz_prev", "stats",
+                    "chunk", "T", "bc", "xc", "partial", "rows_c", "nc",
+                    "nsplit")
+
+
+def _check_layout():
+    """The library's table layouts are amg/cycle_program.py's."""
+    from . import cycle_program as cp
+    lay = (ctypes.c_int * 4)()
+    kernels.lib().tpuamg_pcg_persistent_layout(lay)
+    want = (cp.LEVEL_WORDS, cp.OP_WORDS, len(_PERSISTENT_ARGS),
+            kernels.MAX_DIAGS)
+    if tuple(lay) != want:
+        raise RuntimeError(f"pcg_persistent: library layout {tuple(lay)} "
+                           f"!= host layout {want}")
+
+
+# The persistent launch: one block (of the kernel's 512 threads) per SM.
+# On the H100, 1024 threads per block or more resident blocks made the
+# 8-iteration chunk slower (PERF.md, section 6).
+BLOCKS_PER_SM = 1
+
+
+@functools.lru_cache(maxsize=None)
+def _persistent_occupancy(planes_bf16, smem, device_index):
+    """(resident blocks per SM, SMs) of the persistent kernel, once per
+    plane type, staged table size and device."""
+    _check_layout()
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device_index):
+        kernels.check(kernels.lib().tpuamg_pcg_persistent_occupancy(
+            int(planes_bf16), int(smem), out), "pcg_persistent occupancy")
+    return int(out[0]), int(out[1])
+
+
+def persistent_grid(fp: "FusedPCG"):
+    """(grid, resident blocks per SM, SMs) of fp's persistent launch: SMs
+    x min(occupancy, BLOCKS_PER_SM)."""
+    vc = fp.vc
+    dev = vc.device.index if vc.device.index is not None \
+        else torch.cuda.current_device()
+    per_sm, sms = _persistent_occupancy(
+        kernels.storage_flag(vc.A_planes[0]), fp.program().shared_bytes(),
+        dev)
+    return sms * min(per_sm, BLOCKS_PER_SM), per_sm, sms
+
+
+def _pcg_chunk_persistent(fp: "FusedPCG", x, r, p, z, rz_prev, chunk,
+                          _grid=None):
+    """One chunk as one cooperative launch; _grid overrides the grid (a
+    card test asks for one too large to be co-resident)."""
+    vc = fp.vc
+    Q = fp.Q
+    spec = vc.spec
+    grid, per_sm, sms = persistent_grid(fp)
+    grid = grid if _grid is None else int(_grid)
+    w, zb, cur = _chunk_inputs(fp, x, r, p, z, rz_prev, chunk, grid)
+    if kernels.overlaps(rz_prev, w.stats):    # the kernel zeroes stats
+        rz_prev = rz_prev.clone()
+    prog = fp.program()
+    vals = dict(
+        levels=prog.levels_dev.data_ptr(), nlevels=len(spec.levels),
+        ops=prog.ops_dev.data_ptr(), nops=len(prog),
+        Q_planes=Q.planes.data_ptr(), x=x.data_ptr(), r=r.data_ptr(),
+        p0=w.p[cur].data_ptr(), p1=w.p[1 - cur].data_ptr(),
+        q=w.q.data_ptr(), z=zb.data_ptr(), n=vc.nflat,
+        parts=w.parts.data_ptr(), rz_prev=rz_prev.data_ptr(),
+        stats=w.stats.data_ptr(), chunk=chunk, T=vc.T.data_ptr(),
+        bc=vc._bc.data_ptr(), xc=vc._xc.data_ptr(),
+        partial=prog.partial.data_ptr(), rows_c=spec.rows_c, nc=spec.nc,
+        nsplit=prog.nsplit)
+    args = (ctypes.c_longlong * len(_PERSISTENT_ARGS))(
+        *(int(vals[k]) for k in _PERSISTENT_ARGS))
+    rc = kernels.lib().tpuamg_pcg_persistent(
+        args, len(_PERSISTENT_ARGS), kernels.int_array(tuple(Q.offsets)),
+        len(Q.offsets), kernels.storage_flag(vc.A_planes[0]), grid,
+        prog.shared_bytes(), kernels.stream_ptr())
+    if rc != 0:
+        raise RuntimeError(
+            f"CUDA kernel pcg_persistent failed: cudaError {rc} on a grid "
+            f"of {grid} blocks x 512 threads ({sms} SMs x {per_sm} "
+            f"resident blocks per SM)")
+    kernels.LAUNCHES["pcg_chunk"] += 1
+    return x, r, w.p[(cur + chunk) % 2], zb, w.stats
+
+
 def pcg_chunk(fp: "FusedPCG", x, r, p, z, rz_prev, chunk):
-    """One chunk: kernel K5 with K2's cycle on CUDA tensors, the plain
-    version on CPU tensors.  x and r are updated in place; p and z may
-    come back in the runner's own buffers (valid until its next chunk).
-    Returns (x, r, p, z, stats (chunk + 1, 128) float32 on the device)."""
+    """One chunk: the persistent kernel K5 on CUDA tensors (one launch,
+    the cycle inside), the plain version on CPU tensors.  x and r are
+    updated in place; p and z may come back in the runner's own buffers
+    (valid until its next chunk).  Returns (x, r, p, z, stats (chunk + 1,
+    128) float32 on the device)."""
     if x.device.type == "cpu":
         return pcg_chunk_plain(fp, x, r, p, z, rz_prev, chunk)
-    return _pcg_chunk_cuda(fp, x, r, p, z, rz_prev, chunk)
+    return _pcg_chunk_persistent(fp, x, r, p, z, rz_prev, chunk)
 
 
 class FusedPCG:
@@ -839,6 +956,13 @@ class FusedPCG:
         self.vc = vc
         self.Q = Q
         self._work = None
+        self._program = None
+
+    def program(self) -> CycleProgram:
+        """The cycle's op program (compiled once)."""
+        if self._program is None:
+            self._program = CycleProgram(self.vc)
+        return self._program
 
     def run_chunk(self, x, r, p, z, rz_prev, chunk):
         return pcg_chunk(self, x, r, p, z, rz_prev, int(chunk))

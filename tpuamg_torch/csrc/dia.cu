@@ -3,8 +3,9 @@
 // Replaces tpuamg/sparse/dia_pallas.py:_spmv_kernel (the outer operator of
 // every PCG iteration, via PDIA.matvec) and :_residual_kernel (PDIA.residual;
 // here also the t-pass of every Chebyshev step and the level residual of
-// the V-cycle in vcycle.cu's host sequence).  Its padded-x entry also
-// replaces tpuamg/sparse/pallas_kernels.py:_dia_kernel and the SpMV and
+// the V-cycle in vcycle.cu's host sequence).  The unpadded entry also
+// replaces tpuamg/sparse/pallas_kernels.py:_dia_kernel (its zero-padded x
+// is what the bounds checks give), and the padded-x entry the SpMV and
 // residual calls of tpuamg/dist/pallas_dist.py:ShardedPDIA.
 //
 // Bound on an H100: bytes.  Each row does 2 flops per diagonal against
@@ -70,8 +71,7 @@ extern "C" int tpuamg_dia_sweep(const void* planes, int planes_bf16,
 // The padded-x entry: as tpuamg_dia_sweep, but x has n + 2 x_pad entries
 // and row i of the operator reads x[i + x_pad + off[d]] (zero outside the
 // buffer).  It serves a row shard whose halos were exchanged into the
-// buffer's ends (dist/dist_kernels.py), and the whole-vector SpMV over a
-// zero-padded x that replaces tpuamg/sparse/pallas_kernels.py:_dia_kernel.
+// buffer's ends (dist/dist_kernels.py).
 extern "C" int tpuamg_dia_sweep_pad(const void* planes, int planes_bf16,
                                     const void* x, long long x_pad,
                                     const void* b, void* y, long long n,

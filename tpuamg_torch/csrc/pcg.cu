@@ -1,4 +1,7 @@
-// K5: the PCG iteration of the chunked fused PCG, around K2's cycle.
+// K5, the earlier design: the PCG iteration of the chunked fused PCG,
+// around K2's cycle.  The card's chunk is now one persistent launch
+// (pcg_persistent.cu); this sequence stays to time it beside that one
+// (amg/grid_fused.py::pcg_chunk_sequenced; no route takes it).
 //
 // Replaces tpuamg/amg/grid_fused.py:_pcg_kernel (via _pcg_call,
 // FusedPCG.run_chunk and pcg_fused), which runs `chunk` whole PCG
@@ -7,7 +10,7 @@
 // registers from one phase to the next.  Here blocks run in parallel and
 // in no order, so every reduction crosses a launch boundary: each
 // iteration is three grid-wide launches plus K2's cycle, sequenced on
-// PyTorch's stream by amg/grid_fused.py::_pcg_chunk_cuda, and no scalar
+// PyTorch's stream by amg/grid_fused.py::pcg_chunk_sequenced, and no scalar
 // leaves the card inside a chunk:
 //   pcg_rz:  per-block partials of r.z
 //   pcg_pq:  rz from the partials; beta = rz / rz_prev (0 while

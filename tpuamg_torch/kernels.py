@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 NVCC_TIMEOUT_S = 300
 
 LANES = 128
+MAX_DIAGS = 64      # kMaxDiags of csrc/dia_sweep.cuh and pcg_persistent.cu
 
 # launches per wrapper name, for showing that a run went through the kernels
 LAUNCHES: Counter = Counter()
@@ -63,6 +64,9 @@ _SIGNATURES = {
                       _P, _P),
     "tpuamg_pcg_xr": (_P, _P, _P, _P, _LL, _P, _P, _I, _P, _P, _P),
     "tpuamg_pcg_finish": (_P, _P, _LL, _P, _I, _P, _P),
+    "tpuamg_pcg_persistent": (_P, _I, _P, _I, _I, _I, _I, _P),
+    "tpuamg_pcg_persistent_occupancy": (_I, _I, _P),
+    "tpuamg_pcg_persistent_layout": (_P,),
 }
 
 _lib = None

@@ -17,7 +17,8 @@ final residual) is one call of ``cheb_sweep``, which launches kernel K3
 
 ``dia_spmv_pallas`` is the counterpart of the JAX package's
 ``sparse/pallas_kernels.py`` (kernel ``_dia_kernel``, which nothing
-there calls): y = A x over a zero-padded x, through K1's padded-x entry.
+there calls): y = A x as the JAX kernel computes it over a zero-padded
+x, here K1 on the unpadded x, whose bounds checks give the zero halo.
 
 Also here, copied: the host helpers ``_cheb_coefs`` and ``blockinv_dia``
 that the fused hierarchy uses.
@@ -102,20 +103,20 @@ def dia_spmv_pallas(A, x, block=8192):
     """y = A @ x for a DIA operator (DIA or KernelDIA) over any offsets:
     the counterpart of tpuamg/sparse/pallas_kernels.py:dia_spmv_pallas.
 
-    As there, x is padded by max|offset| zeros on both sides, and the
-    product is one pass over the padded x: here K1's padded-x entry (the
-    plain version on a CPU tensor).  The JAX kernel accepts only offsets
-    that are multiples of 1024, a limit of the TPU compiler; this one
-    takes any.  ``block`` sized the TPU kernel's VMEM tiles and is
-    accepted and ignored."""
+    The JAX kernel pads x with max|offset| zeros on both sides, so that
+    row i reads xpad[i + pad + off] for every diagonal, and makes one
+    pass over the padded x.  Row i's reads then land at indices
+    i + off of x, and all those outside [0, n) are padding, i.e. zero.
+    K1's unpadded entry reads exactly that: its bounds checks give 0
+    outside [0, n).  So this calls K1 on x as it is, with no padded copy
+    and nothing allocated but the output (the plain version on a CPU
+    tensor).  The JAX kernel accepts only offsets that are multiples of
+    1024, a limit of the TPU compiler; this one takes any.  ``block``
+    sized the TPU kernel's VMEM tiles and is accepted and ignored."""
     del block
     planes = getattr(A, "planes", None)
     planes = A.data if planes is None else planes
-    pad = max((abs(int(o)) for o in A.offsets), default=0)
-    n = A.shape[0]
-    xp = torch.zeros(n + 2 * pad, dtype=x.dtype, device=x.device)
-    xp[pad:pad + n] = x
-    return dia_spmv(A.offsets, planes, xp, x_pad=pad)
+    return dia_spmv(A.offsets, planes, x)
 
 
 class KernelDIA:
