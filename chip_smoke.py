@@ -10,7 +10,7 @@ bidomain 2D monolithic system at n=512 (526,338 dofs), the fused grid
 hierarchy (preset metric_schwarz, V-cycle, Chebyshev degree 4,
 coarse_dof=4096, bf16 storage of the cycle's planes, float32 compute),
 and PCG with one outer DIA SpMV (kernel K1) and one whole cycle (kernel
-K2's launch sequence) per iteration.
+K2, one launch) per iteration.
 
 Phases, one line of numbers each:
   1. build the CUDA kernels (one nvcc call) and print -Xptxas -v;
@@ -18,7 +18,8 @@ Phases, one line of numbers each:
   3. K1 against its plain version on the outer operator (f32 planes) and
      on the level-0 bf16 planes, with times, its bound and the
      torch.sparse CSR yardstick;
-  4. K2 (one whole cycle) against the plain torch cycle at n=512;
+  4. K2 (one whole cycle) against the plain torch cycle at n=512 (since
+     the fifth slice: one launch, see below);
   5. the PCG solve of bench.py's protocol (gamma 1e6, tol 1e-12, maxiter
      50): iterations, reduction, s/iteration, nnz/s, launch counts;
   6. gamma 1, 1e6 and 1e8 at n=512 to tol 2e-5, f32 storage.
@@ -61,6 +62,17 @@ The fourth slice redesigns two kernels and extends two phases:
      of csrc/pcg.cu's;
  13. dia_spmv_pallas is one launch of K1's unpadded entry, no padded copy;
      the padded-x launch alone is timed beside it.
+The fifth slice makes K2 one persistent cooperative launch per cycle
+(csrc/cycle_persistent.cu, the op program through the interpreter it
+shares with K5, csrc/cycle_program.cuh), with K1's residual form inside:
+  4. the one-launch cycle against its plain version (run_program_plain)
+     and against the earlier host-sequenced cycle (vcycle_sequenced),
+     both timed, launches per cycle (1), its device time and idle share,
+     and single ops (the level-0 Chebyshev step warm and cold, the coarse
+     solve) against their bounds;
+  5, 8, 10. route (b), route (a)'s first cycle and refine make one
+     cycle_persistent launch per cycle and none of the sequenced cycle's
+     (K2_STEPS, K1's dia_residual).
 Then a JSON line {"kernels": [...]}, the nvidia-smi line, and, last, the
 result line {"ok": true, "device": {...}}.  Any failed check raises, and
 the script exits nonzero; a watchdog ends it, with a traceback and a
@@ -87,9 +99,11 @@ CHEB = 4
 COARSE = 4096
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 peak outside tensor cores
-# the launches of csrc/vcycle.cu that one cycle makes
+# the launches of csrc/vcycle.cu that one host-sequenced cycle makes
+# (with K1's dia_residual): the one-launch cycle makes none of them
 K2_STEPS = ("cheb_apply", "restrict", "prolong", "coarse_gemv",
             "coarse_reduce")
+SEQUENCED = K2_STEPS + ("dia_residual",)
 # the launches of csrc/pcg.cu that one chunk makes
 K5_STEPS = ("pcg_rz", "pcg_pq", "pcg_xr", "pcg_finish")
 N2 = 256            # the second slice's full width: route (a)'s largest n
@@ -191,7 +205,8 @@ def ptxas_of(log, kernel):
         if m:
             keep = kernel in m.group(1)
             if keep:
-                out.append(re.sub(r"^_Z\w*?\d+(pcg)", r"\1", m.group(1)))
+                out.append(re.sub(r"^_Z\w*?\d+(pcg|cycle)", r"\1",
+                                  m.group(1)))
         elif keep and ("Used" in line or "spill" in line):
             out.append(line.replace("ptxas info    :", "").strip())
     return out
@@ -232,7 +247,9 @@ def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4):
     from tpuamg_torch import kernels
     from tpuamg_torch.sparse.dia_kernels import (KernelDIA, dia_spmv,
                                                  dia_spmv_plain)
-    from tpuamg_torch.amg.grid_fused import vcycle, vcycle_plain
+    from tpuamg_torch.amg.cycle_program import run_program_plain
+    from tpuamg_torch.amg.grid_fused import (vcycle, vcycle_plain,
+                                             vcycle_sequenced)
     from tpuamg_torch.krylov import pcg
 
     dev = torch.device(device)
@@ -251,6 +268,8 @@ def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4):
             f"ptxas: {' '.join(regs)} spills: {spills or 'none'}")
         say("[1 build] the persistent K5: " + " | ".join(
             ptxas_of(info["ptxas"], "pcg_persistent")))
+        say("[1 build] the one-launch K2: " + " | ".join(
+            ptxas_of(info["ptxas"], "cycle_persistent")))
     else:
         say("[1 build] skipped (rehearsal on the CPU)")
 
@@ -327,40 +346,87 @@ def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4):
                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                          library_ms=lib))
 
-    # ---- 4. K2: one whole cycle ----------------------------------------
+    # ---- 4. K2: one whole cycle, one launch ----------------------------
     bm = torch.as_tensor(rng.standard_normal(nflat), dtype=torch.float32
                          ).to(dev) * vc.mask_flat
+    prog = vc.program()
     kernels.reset_launches()
     z_k = vcycle(vc, bm).clone()
     sync(dev)
     per_cycle = dict(kernels.LAUNCHES)
     if on_card:
-        for k in K2_STEPS + ("dia_residual", "vcycle"):
-            check(per_cycle.get(k, 0) > 0, f"cycle did not launch {k}")
-    z_p = vcycle_plain(vc, bm).clone()
+        check(per_cycle == {"cycle_persistent": 1, "vcycle": 1},
+              f"cycle: one cycle_persistent launch, got {per_cycle}")
+    z_p = run_program_plain(prog, vc, bm).clone()
     sync(dev)
     abs_err = float((z_k - z_p).abs().max())
-    rel = float(torch.linalg.vector_norm(z_k - z_p)
-                / torch.linalg.vector_norm(z_p))
+    rel = rel_err(z_k, z_p)
     check(bool(torch.isfinite(z_k).all()) and rel <= 1e-4,
           f"cycle vs plain: rel err {rel:.3e} > 1e-4")
-    ms = timed_ms(lambda: vcycle(vc, bm), 50 if on_card else 1, dev)
-    plain_ms = timed_ms(lambda: vcycle_plain(vc, bm), 5 if on_card else 1,
-                        dev)
-    nbytes, flops, stream_bytes = cycle_work(vc)
-    bms, by = bound_ms(nbytes, flops)
-    say(f"[4 K2 vcycle] rel err {rel:.3e} max_abs_err {abs_err:.3e} | "
-        f"cycle {ms:.4f} ms plain {plain_ms:.4f} ms | launches/cycle "
-        f"{sum(v for k, v in per_cycle.items() if k != 'vcycle')} "
-        f"{per_cycle} | bound {bms:.5f} ms ({by}; inputs once "
-        f"{nbytes} B, {flops} flop); streamed per cycle {stream_bytes} B "
-        f"= {stream_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms")
+    reps = 200 if on_card else 1
+    seq = dict(ms=None, abs_err=None, text="not run (CUDA only)")
+    if on_card:
+        # the earlier design on the same inputs: K2's pieces and K1's
+        # residual form, one host launch each; timed in turns with the
+        # one-launch cycle (sequenced, one launch, one launch, sequenced)
+        kernels.reset_launches()
+        z_s = vcycle_sequenced(vc, bm).clone()
+        sync(dev)
+        per_seq = dict(kernels.LAUNCHES)
+        check(all(per_seq.get(k, 0) > 0 for k in SEQUENCED)
+              and not per_seq.get("cycle_persistent"),
+              f"sequenced cycle launches {per_seq}")
+        rel_s, rel_ks = rel_err(z_s, z_p), rel_err(z_k, z_s)
+        check(rel_s <= 1e-4 and rel_ks <= 1e-4,
+              f"sequenced vs plain {rel_s:.3e}, one launch vs sequenced "
+              f"{rel_ks:.3e} > 1e-4")
+        t_seq = [timed_ms(lambda: vcycle_sequenced(vc, bm), 20, dev)]
+        t_one = [timed_ms(lambda: vcycle(vc, bm), reps, dev)
+                 for _ in range(2)]
+        t_seq.append(timed_ms(lambda: vcycle_sequenced(vc, bm), 20, dev))
+        ms = float(np.mean(t_one))
+        seq["ms"] = float(np.mean(t_seq))
+        seq["abs_err"] = float((z_s - z_p).abs().max())
+        seq["text"] = (
+            f"{t_seq[0]:.4f}/{t_seq[1]:.4f} ms, "
+            f"{sum(v for k, v in per_seq.items() if k != 'vcycle')} "
+            f"launches (vs plain {rel_s:.3e}; one launch vs sequenced "
+            f"{rel_ks:.3e})")
+    else:
+        ms = timed_ms(lambda: vcycle(vc, bm), reps, dev)
+        t_one = [ms]
+    plain_ms = timed_ms(lambda: run_program_plain(prog, vc, bm),
+                        5 if on_card else 1, dev)
+    work = cycle_work(vc)
+    bms, by = bound_ms(work["inputs"], work["flops"])
+    say(f"[4 K2 vcycle] one launch: rel err {rel:.3e} max_abs_err "
+        f"{abs_err:.3e} | cycle {'/'.join(f'{t:.4f}' for t in t_one)} ms "
+        f"plain {plain_ms:.4f} ms | sequenced {seq['text']} | launches "
+        f"per cycle {sum(v for k, v in per_cycle.items() if k != 'vcycle')}"
+        f" {per_cycle} | program: {len(prog)} ops, {prog.grid_barriers()} "
+        f"grid barriers, {prog.shared_bytes()} B of tables, nsplit "
+        f"{prog.nsplit} ({-(-vc.spec.nc // prog.nsplit)} columns), "
+        f"{prog.counts()} | bound {bms:.5f} ms ({by}; inputs once "
+        f"{work['inputs']} B, {work['flops']} flop); streamed per cycle "
+        f"{work['stream']} B = "
+        f"{work['stream'] / HBM_BYTES_PER_S * 1e3:.5f} ms (sequenced "
+        f"{work['stream_sequenced']} B = "
+        f"{work['stream_sequenced'] / HBM_BYTES_PER_S * 1e3:.5f} ms)")
     kern.append(dict(name="vcycle", route="cuda",
-                     source="tpuamg_torch/csrc/vcycle.cu",
+                     source="tpuamg_torch/csrc/cycle_persistent.cu",
                      replaces="tpuamg/amg/grid_fused.py:553",
                      launches=0, max_abs_err=abs_err, ms=ms,
                      plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                      library_ms=None))
+    kern.append(dict(name="vcycle_sequenced", route="cuda",
+                     source="tpuamg_torch/csrc/vcycle.cu",
+                     replaces="tpuamg/amg/grid_fused.py:553",
+                     launches=0, max_abs_err=seq["abs_err"], ms=seq["ms"],
+                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                     library_ms=None))
+    if on_card:
+        cycle_profile(vc, bm, ms, work)
+        op_times(vc, bm, dev)
 
     # ---- 5. the PCG solve (bench.py protocol) --------------------------
     bk = scatter(b, slots, nflat, dev)
@@ -385,10 +451,17 @@ def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4):
           f"pcg reduction {red:.3e} > 1e-10")
     check(np.all(np.isfinite(xs)), "pcg solution not finite")
     if on_card:
-        for k in K2_STEPS + ("dia_spmv", "dia_residual", "vcycle"):
-            check(counts.get(k, 0) > 0, f"kernel {k} not launched by pcg")
+        # one cycle launch per outer SpMV: each iteration's and the
+        # start's; nothing of the sequenced cycle
+        check(counts.get("cycle_persistent", 0) == counts.get("vcycle", 0)
+              == counts.get("dia_spmv", 0) > 0
+              and not any(counts.get(k) for k in SEQUENCED),
+              f"pcg: one cycle_persistent launch per iteration and none of "
+              f"{SEQUENCED} expected, got {counts}")
         for row in kern:
-            row["launches"] = counts[row["name"]]
+            row["launches"] = counts.get(
+                "cycle_persistent" if row["name"] == "vcycle"
+                else row["name"], 0)
     t0 = time.perf_counter()
     res2 = pcg(Aop, bk, M=vc, tol=1e-12, maxiter=50, chunk=50)
     sync(dev)
@@ -500,7 +573,8 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
     from tpuamg_torch.amg.grid_fused import (pcg_chunk, pcg_chunk_plain,
                                              pcg_chunk_sequenced, pcg_fused,
                                              persistent_grid,
-                                             setup_grid_fused_pcg)
+                                             setup_grid_fused_pcg,
+                                             vcycle_plain, vcycle_sequenced)
     from tpuamg_torch.config import PRESETS
     from tpuamg_torch.problems.solve import solve_system
     from tpuamg_torch.sparse.dia_kernels import (_cheb_coefs,
@@ -587,7 +661,9 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
     vc = fp.vc
     bk = scatter(b, slots, nflat, dev)
     bm = bk * vc.mask_flat
-    z0 = vc.matvec(bm)
+    # the chunk starts from the host-sequenced cycle's z0, the start K5's
+    # earlier readings had (PERF.md), so that its errors compare with them
+    z0 = (vcycle_sequenced if on_card else vcycle_plain)(vc, bm).clone()
     chunk = 8
 
     def start():
@@ -617,7 +693,8 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
         per_seq = dict(kernels.LAUNCHES)
         check(per_seq.get("pcg_chunk_sequenced") == 1
               and per_seq.get("pcg_pq") == chunk
-              and per_seq.get("vcycle") == chunk,
+              and per_seq.get("vcycle") == chunk
+              and not per_seq.get("cycle_persistent"),
               f"sequenced chunk launches {per_seq}")
         s_rows, s_x, s_abs = chunk_errs(got_s, got_p, chunk, "plain")
         k_rows, k_x, _ = chunk_errs(got_k, got_s, chunk, "sequenced")
@@ -690,10 +767,12 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
     chunks = -(-rep.niters // ROUTE_A_CHUNK)
     if on_card:
         check(counts.get("pcg_chunk") == chunks
-              and not any(counts.get(kk) for kk in K5_STEPS)
-              and counts.get("vcycle") == 1,
-              f"route (a): {chunks} persistent launches, none of "
-              f"{K5_STEPS}, one K2 cycle (z0) expected, got {counts}")
+              and not any(counts.get(kk) for kk in K5_STEPS + SEQUENCED)
+              and counts.get("vcycle") == counts.get("cycle_persistent")
+              == 1,
+              f"route (a): {chunks} persistent launches, one K2 launch "
+              f"(z0), none of {K5_STEPS + SEQUENCED} expected, got "
+              f"{counts}")
         k5["launches"] = counts["pcg_chunk"]
     ran = chunks * ROUTE_A_CHUNK
     it = max(rep.niters, 1)
@@ -748,7 +827,8 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
     chunks5 = -(-res5.niters // ROUTE_A_CHUNK)
     if on_card:
         check(counts5.get("pcg_chunk") == chunks5
-              and not any(counts5.get(kk) for kk in K5_STEPS),
+              and counts5.get("cycle_persistent") == 1
+              and not any(counts5.get(kk) for kk in K5_STEPS + SEQUENCED),
               f"route (a) at n={n512}: launches {counts5}")
     ran5 = chunks5 * ROUTE_A_CHUNK
     x5 = res5.x.double().cpu().numpy()[slots5]
@@ -834,6 +914,7 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
     # ---- 10. refine at n=512 -------------------------------------------
     v4096 = replace(PRESETS["metric_schwarz"], dtype="float32",
                     cycle_type="v", coarse_dof=4096)
+    kernels.reset_launches()
     rep_r = solve_system(A512, b512, "metric_mono",
                          (A512.shape[0] // 2,) * 2, tol=1e-8, maxiter=200,
                          grid=((n512 + 1,) * 2, 2), params=v4096,
@@ -843,7 +924,14 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
         f"{rep_r.r_norm:.3e} converged {rep_r.converged} pass_iters "
         f"{'+'.join(map(str, rep_r.pass_iters))} (TPU record "
         f"{'+'.join(map(str, TPU_REFINE_PASSES))}) | setup "
-        f"{rep_r.t_setup:.2f} s solve {rep_r.t_solve:.3f} s")
+        f"{rep_r.t_setup:.2f} s solve {rep_r.t_solve:.3f} s | launches "
+        f"{dict(kernels.LAUNCHES)}")
+    if on_card:
+        counts = kernels.LAUNCHES
+        check(counts["cycle_persistent"] == counts["vcycle"] > 0
+              and not any(counts[kk] for kk in SEQUENCED),
+              f"refine: one cycle_persistent launch per cycle and none of "
+              f"{SEQUENCED} expected, got {dict(counts)}")
     check(rep_r.converged and rep_r.r_norm <= 1e-8,
           f"refine: true rel residual {rep_r.r_norm:.3e} > 1e-8")
     if n512 == N:
@@ -1187,7 +1275,8 @@ def phase15(dev, mesh):
 
 
 def route_pair(fp, bk, vc, A, b, slots, n, dev, its_a, plain, ms_a=None):
-    """Route (b) on fp's hierarchy (K1 outer + K2 cycle per iteration) and,
+    """Route (b) on fp's hierarchy (K1 outer + one K2 launch per
+    iteration) and,
     with plain=True, pcg_fused over the plain chunk; returns the plain
     chunk's iterations (or route (b)'s)."""
     from tpuamg_torch.amg.grid_fused import (fused_operator, pcg_chunk_plain,
@@ -1212,6 +1301,10 @@ def route_pair(fp, bk, vc, A, b, slots, n, dev, its_a, plain, ms_a=None):
     sync(dev)
     tb = time.perf_counter() - t0
     ran = max(kernels.LAUNCHES["vcycle"], 1)     # executed, + z0's cycle
+    if dev.type == "cuda":
+        check(kernels.LAUNCHES["cycle_persistent"] == ran
+              and not any(kernels.LAUNCHES[kk] for kk in SEQUENCED),
+              f"route (b) at n={n}: launches {dict(kernels.LAUNCHES)}")
     xb = rb.x.double().cpu().numpy()[slots]
     trb = float(np.linalg.norm(b - A.matvec(xb)) / np.linalg.norm(b))
     say(f"[8 route b n={n}] same hierarchy, launch per apply: iterations "
@@ -1266,17 +1359,18 @@ def run_driver(dev, nrefs):
 
 def chunk_work(fp, chunk):
     """(bytes of every input read once + outputs written once, flops,
-    bytes the chunk streams) for `chunk` iterations of K5 + K2."""
+    bytes the chunk streams) for `chunk` iterations of K5 with the cycle
+    program inside."""
     n = fp.vc.nflat
     q = fp.Q.planes.numel() * 4
-    cin, cflops, cstream = cycle_work(fp.vc)
+    cw = cycle_work(fp.vc)
     # inputs: Q, the cycle's planes and T, x r p z in; x r p z out
-    nbytes = q + (cin - 4 * n * 2) + 8 * 4 * n
-    flops = chunk * (2 * fp.Q.planes.numel() + 14 * n + cflops)
+    nbytes = q + (cw["inputs"] - 4 * n * 2) + 8 * 4 * n
+    flops = chunk * (2 * fp.Q.planes.numel() + 14 * n + cw["flops"])
     # rz: r, z; pq: z, p (x nd reads, mostly cached), Q, p_new, q;
     # xr: x, r, p, q read, x, r written
-    stream = chunk * (q + 4 * n * 2 + 4 * n * 4 + 4 * n * 6 + cstream) \
-        + 8 * n
+    stream = chunk * (q + 4 * n * 2 + 4 * n * 4 + 4 * n * 6
+                      + cw["stream"]) + 8 * n
     return nbytes, flops, stream
 
 
@@ -1305,9 +1399,43 @@ def profile_busy(fn, dev):
     return (rows, busy, wall) if busy > 0 else None
 
 
+def op_bytes(vc, op):
+    """Bytes one op of the cycle program streams: its planes and vectors
+    each read once (neighbouring x entries from cache), what it writes
+    once."""
+    from tpuamg_torch.amg import cycle_program as cp
+    spec = vc.spec
+    nc = spec.nc
+    if op.kind == cp.COARSE_GEMV:
+        nsplit = vc.program().nsplit
+        return vc.T.numel() * vc.T.element_size() + 4 * nc * (1 + nsplit)
+    if op.kind == cp.COARSE_REDUCE:
+        return 4 * nc * (vc.program().nsplit + 1)
+    lv = op.level
+    n = spec.levels[lv].n
+    n_next = spec.levels[lv + 1].n if lv + 1 < len(spec.levels) else nc
+    a = vc.A_planes[lv].numel() * vc.A_planes[lv].element_size()
+    if op.kind == cp.ZERO:
+        return 4 * n
+    if op.kind == cp.CHEB_STEP:
+        c = vc.C_planes[lv].numel() * vc.C_planes[lv].element_size()
+        if op.cold:                  # b and C in; d and x out
+            return c + 12 * n
+        # A, C, b, x_src (and d) in; d and x_dst out
+        return a + c + 16 * n + (0 if op.first else 4 * n)
+    if op.kind == cp.RESID_RESTRICT:     # A, b, x in; the coarse b out
+        return a + 8 * n + 4 * n_next
+    if op.kind == cp.PROLONG:            # M, x, the coarse x in; x out
+        m = vc.M_planes[lv].numel() * vc.M_planes[lv].element_size()
+        return m + 8 * n + 4 * n_next
+    raise ValueError(op)
+
+
 def cycle_work(vc):
-    """(bytes of every input read once + the output written once, flops of
-    one cycle, bytes the cycle streams with its re-reads)."""
+    """{"inputs": bytes of every input read once + the output written
+    once, "flops": of one cycle, "stream": bytes the one-launch cycle's
+    ops stream (op_bytes), "stream_sequenced": bytes the host-sequenced
+    cycle streams with its separate passes}."""
     spec = vc.spec
     inputs = 4 * vc.nflat * 2 + vc.T.numel() * vc.T.element_size()
     flops = 0
@@ -1331,7 +1459,85 @@ def cycle_work(vc):
                             * steps + m.numel() * m.element_size()
                             + 16 * S.n)
     flops += 2 * spec.nc * spec.nc
-    return inputs, flops, stream
+    fused = sum(op_bytes(vc, op) for op in vc.program().ops)
+    return dict(inputs=inputs, flops=flops, stream=fused,
+                stream_sequenced=stream)
+
+
+def cycle_profile(vc, bm, ms, work):
+    """Phase 4: the one-launch cycle's device time over 20 back-to-back
+    cycles (profiler), its idle share against the events' time per
+    cycle, and both against the cycle's bounds."""
+    from tpuamg_torch.amg.grid_fused import vcycle
+    prof = profile_busy(lambda: [vcycle(vc, bm) for _ in range(20)],
+                        bm.device)
+    if prof is None:
+        say("[4 profile] not measured: the profiler saw no device time")
+        return
+    rows_p, busy, wall = prof
+    kern_us = sum(u for k, _, u in rows_p if "cycle_persistent" in k) / 20
+    b_in = work["inputs"] / HBM_BYTES_PER_S * 1e6
+    b_st = work["stream"] / HBM_BYTES_PER_S * 1e6
+    say(f"[4 profile] 20 cycles: device busy {busy:.1f} us of "
+        f"{wall * 1e6:.1f} us wall with the profiler on; the kernel "
+        f"{kern_us:.2f} us per cycle against bounds {b_in:.2f} us (inputs "
+        f"once) and {b_st:.2f} us (streamed); idle share of back-to-back "
+        f"cycles without the profiler {1 - kern_us / (ms * 1e3):.4f} | "
+        + json.dumps([(k, c, round(u, 1)) for k, c, u in rows_p[:4]]))
+
+
+def op_times(vc, bm, dev, reps=20):
+    """Phase 4: single ops of the one-launch cycle on the card, each as
+    its own program of `reps` copies in one launch; us per op = (time of
+    the reps-op launch - time of a 1-op launch) / (reps - 1), CUDA
+    events, warm L2 (the same planes op after op).  The level-0 step is
+    also timed alone after a 128 MB write that evicts the 50 MB L2
+    (cold), by the profiler's device time of the launch, beside the same
+    launch warm."""
+    from tpuamg_torch.amg import cycle_program as cp
+    from tpuamg_torch.amg.grid_fused import _cycle_persistent
+    prog = vc.program()
+    step = next(op for op in prog.ops if op.kind == cp.CHEB_STEP
+                and op.level == 0 and not op.cold and not op.first)
+    coarse = [op for op in prog.ops if op.kind in (cp.COARSE_GEMV,
+                                                   cp.COARSE_REDUCE)][:2]
+
+    def table(ops, k):
+        recs = [o.record() for o in ops * k]
+        rec = np.array(recs, np.int32)
+        rec[-1, 0] |= cp.F_NO_BARRIER << 16
+        return torch.from_numpy(rec).to(dev)
+
+    out = {}
+    for label, ops in (("level-0 CHEB_STEP", [step]),
+                       ("coarse GEMV + REDUCE", coarse)):
+        t1 = timed_ms(lambda t=table(ops, 1): _cycle_persistent(
+            vc, bm, _ops=t), 50, dev)
+        tk = timed_ms(lambda t=table(ops, reps): _cycle_persistent(
+            vc, bm, _ops=t), 10, dev)
+        us = (tk - t1) / (reps - 1) * 1e3
+        nbytes = sum(op_bytes(vc, o) for o in ops)
+        bound = nbytes / HBM_BYTES_PER_S * 1e6
+        out[label] = us
+        say(f"[4 op] {label}: {us:.2f} us per op (warm L2; a 1-op launch "
+            f"{t1 * 1e3:.2f} us) | streams {nbytes} B, bound "
+            f"{bound:.2f} us -> {bound / us:.3f} of bound")
+    one = table([step], 1)
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+
+    def launches(cold):
+        for _ in range(10):
+            if cold:
+                flush.fill_(1.0)
+            _cycle_persistent(vc, bm, _ops=one)
+    dev_us = {}
+    for cold in (False, True):
+        prof = profile_busy(lambda c=cold: launches(c), dev)
+        dev_us[cold] = "not measured" if prof is None else "%.2f us" % (
+            sum(u for k, _, u in prof[0] if "cycle_persistent" in k) / 10)
+    say(f"[4 op] level-0 CHEB_STEP alone, device time per launch: warm "
+        f"{dev_us[False]}, cold (after a 128 MB write) {dev_us[True]}")
+    return out
 
 
 def profile_pcg(Aop, vc, bk, iters, dev):

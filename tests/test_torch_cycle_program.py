@@ -9,7 +9,7 @@ persistent PCG kernel runs, and K7's counterpart dia_spmv_pallas.
   pcg_fused in interpret mode, with test_torch_fused_pcg.py's checks.
 * The op list and its barriers, the two x buffers per level,
   the level and op tables, and the table layouts against
-  csrc/pcg_persistent.cu.
+  csrc/cycle_program.cuh and the two kernels' argument vectors.
 * dia_spmv_pallas on the unpadded x against dia_spmv_plain and against
   the JAX dia_spmv_pallas run in interpret mode, on 1024-aligned and on
   arbitrary offsets.
@@ -324,10 +324,12 @@ def _enum_values(src, name):
 
 def test_table_layouts_match_cuda_source():
     """The words that cycle_program.py and grid_fused.py write are the
-    ones csrc/pcg_persistent.cu reads (the card checks the built library
+    ones the CUDA sources read: the tables in csrc/cycle_program.cuh,
+    which both persistent kernels include, and each kernel's host
+    argument vector in its own source (the card checks the built library
     too)."""
-    src = (Path(cp.__file__).resolve().parents[1] / "csrc"
-           / "pcg_persistent.cu").read_text()
+    csrc = Path(cp.__file__).resolve().parents[1] / "csrc"
+    src = (csrc / "cycle_program.cuh").read_text()
     lw = _enum_values(src, "LevelWord")
     assert lw.pop("kLevelWords") == cp.LEVEL_WORDS
     names = ("A", "C", "M", "X0", "X1", "D", "B", "NextB", "NextX0",
@@ -348,12 +350,16 @@ def test_table_layouts_match_cuda_source():
     assert flags == dict(fFirst=cp.F_FIRST, fCold=cp.F_COLD, fSrc=cp.F_SRC,
                          fDst=cp.F_DST, fNSrc=cp.F_NSRC,
                          fNoBarrier=cp.F_NO_BARRIER)
-    args = _enum_values(src, "ArgWord")
-    assert args.pop("kNArgs") == len(grid_fused._PERSISTENT_ARGS)
-    assert [k[1:].lower() for k in sorted(args, key=args.get)] == [
-        k.replace("_", "").lower() for k in grid_fused._PERSISTENT_ARGS]
     assert re.search(r"constexpr int kOpWords = %d;" % cp.OP_WORDS, src)
     assert re.search(r"constexpr int kMaxDiags = %d;" % MAX_DIAGS, src)
+    for name, host in (("pcg_persistent.cu", grid_fused._PERSISTENT_ARGS),
+                       ("cycle_persistent.cu", grid_fused._CYCLE_ARGS)):
+        ksrc = (csrc / name).read_text()
+        assert '#include "cycle_program.cuh"' in ksrc, name
+        args = _enum_values(ksrc, "ArgWord")
+        assert args.pop("kNArgs") == len(host), name
+        assert [k[1:].lower() for k in sorted(args, key=args.get)] == [
+            k.replace("_", "").lower() for k in host], name
 
 
 # ---------------------------------------------------------------------------

@@ -68,8 +68,8 @@ def test_cycle_kernels_match_plain(storage, cycle):
     from tpuamg_torch.config import PRESETS
     from tpuamg_torch.fem import mms
     from tpuamg_torch.problems.bidomain import Params, get_mesh, get_system
-    from tpuamg_torch.amg.grid_fused import (setup_grid_fused, vcycle,
-                                             vcycle_plain)
+    from tpuamg_torch.amg.grid_fused import (setup_grid_fused,
+                                             vcycle_plain, vcycle_sequenced)
     dev = _card()
     n = 64
     p = Params(2.0, 3.0, 1e6)
@@ -83,7 +83,7 @@ def test_cycle_kernels_match_plain(storage, cycle):
     bm = torch.as_tensor(rng.standard_normal(nflat), dtype=torch.float32
                          ).to(dev) * vc.mask_flat
     before = kernels.LAUNCHES["vcycle"]
-    z = vcycle(vc, bm).clone()
+    z = vcycle_sequenced(vc, bm).clone()
     torch.cuda.synchronize()
     z_ref = vcycle_plain(vc, bm).clone()
     err = float(torch.linalg.vector_norm(z - z_ref)
@@ -93,6 +93,137 @@ def test_cycle_kernels_match_plain(storage, cycle):
     for name in ("cheb_apply", "restrict", "prolong", "coarse_gemv",
                  "coarse_reduce", "dia_residual"):
         assert kernels.LAUNCHES[name] > 0, name
+
+
+# ---------------------------------------------------------------------------
+# K2: the whole cycle as one persistent cooperative launch
+# ---------------------------------------------------------------------------
+
+# the launches of the host-sequenced cycle, none of which the one-launch
+# cycle makes
+SEQUENCED_STEPS = ("cheb_apply", "restrict", "prolong", "coarse_gemv",
+                   "coarse_reduce", "dia_residual", "dia_spmv")
+
+
+def _cycle_setup(dev, cycle, storage, gamma, pre=1, n=64):
+    """The sequenced cycle test's hierarchy (n=64, coarse_dof 200, degree
+    4: three smoothed levels), and a pre-masked random b."""
+    from dataclasses import replace
+    from tpuamg_torch.config import PRESETS
+    from tpuamg_torch.fem import mms
+    from tpuamg_torch.problems.bidomain import Params, get_mesh, get_system
+    from tpuamg_torch.amg.grid_fused import setup_grid_fused
+    p = Params(2.0, 3.0, gamma)
+    A, _, _, _ = get_system(get_mesh(n, 2), mms.setup_bidomain_mms(p, 2), p)
+    prm = replace(PRESETS["metric_schwarz"], dtype="float32",
+                  cycle_type=cycle, coarse_dof=200, presmooth_iter=pre)
+    vc, slots, nflat = setup_grid_fused(A, (n + 1, n + 1), F=2, params=prm,
+                                        cheb_degree=4, storage_dtype=storage,
+                                        device=dev)
+    rng = np.random.default_rng(2)
+    bm = torch.as_tensor(rng.standard_normal(nflat), dtype=torch.float32
+                         ).to(dev) * vc.mask_flat
+    return vc, bm
+
+
+@pytest.mark.parametrize("cycle,storage,gamma,pre", [
+    (c, s, g, 1) for c in ("v", "w") for s in (torch.float32, torch.bfloat16)
+    for g in (1.0, 1e6)] + [("v", torch.float32, 1.0, 0),
+                            ("w", torch.bfloat16, 1e6, 0)])
+def test_cycle_kernel_matches_plain(cycle, storage, gamma, pre):
+    """One launch of the persistent cycle against its plain version
+    (run_program_plain of the same program) at the sequenced cycle
+    test's limit, 1e-4 relative (float32 sums in another order); one
+    cycle_persistent launch and none of the sequenced cycle's; pre = 0
+    runs the ZERO op."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg import cycle_program as cp
+    from tpuamg_torch.amg.grid_fused import vcycle
+    dev = _card()
+    vc, bm = _cycle_setup(dev, cycle, storage, gamma, pre)
+    prog = vc.program()
+    assert any(op.kind == cp.ZERO for op in prog.ops) == (pre == 0)
+    kernels.reset_launches()
+    z = vcycle(vc, bm).clone()
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"cycle_persistent": 1, "vcycle": 1}
+    z_ref = cp.run_program_plain(prog, vc, bm).clone()
+    assert bool(torch.isfinite(z).all())
+    assert _rel(z, z_ref) < 1e-4, _rel(z, z_ref)
+
+
+@pytest.mark.parametrize("cycle", ["v", "w"])
+def test_cycle_kernel_matches_sequenced(cycle):
+    """The one-launch cycle against the earlier host-sequenced one, which
+    launches its steps and no cycle_persistent."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg.grid_fused import vcycle, vcycle_sequenced
+    dev = _card()
+    vc, bm = _cycle_setup(dev, cycle, torch.bfloat16, 1e6)
+    kernels.reset_launches()
+    z_s = vcycle_sequenced(vc, bm).clone()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cycle_persistent"] == 0
+    assert kernels.LAUNCHES["cheb_apply"] > 0
+    z = vcycle(vc, bm).clone()
+    torch.cuda.synchronize()
+    assert _rel(z, z_s) < 1e-4, _rel(z, z_s)
+
+
+def test_cycle_kernel_is_deterministic():
+    """No atomics: the same cycle gives the same bits run to run."""
+    from tpuamg_torch.amg.grid_fused import vcycle
+    dev = _card()
+    vc, bm = _cycle_setup(dev, "w", torch.bfloat16, 1e6)
+    outs = [vcycle(vc, bm).clone() for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+def test_cycle_kernel_too_large_grid_raises():
+    """A grid that cannot be co-resident is refused by the cooperative
+    launch, and the wrapper raises naming the grid and the occupancy;
+    nothing falls back to the sequenced cycle."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg.grid_fused import (_cycle_persistent, cycle_grid,
+                                             vcycle)
+    dev = _card()
+    vc, bm = _cycle_setup(dev, "v", torch.float32, 1.0, n=16)
+    _, per_sm, sms = cycle_grid(vc)
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="resident blocks per SM"):
+        _cycle_persistent(vc, bm, _grid=per_sm * sms + 1)
+    assert not any(kernels.LAUNCHES.values())
+    vcycle(vc, bm)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cycle_persistent"] == 1
+
+
+@pytest.mark.parametrize("cycle", ["v", "w"])
+def test_pcg_route_b_one_cycle_launch_per_iteration(cycle):
+    """Route (b): krylov.cg.pcg with the cycle as M makes one
+    cycle_persistent launch per outer SpMV (each iteration, and the
+    start's), none of the sequenced cycle's steps, and converges as the
+    same loop over the plain cycle does."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg import cycle_program as cp
+    from tpuamg_torch.krylov import pcg
+    dev = _card()
+    fp, bk = _pcg_setup(dev, cycle)
+    vc = fp.vc
+    kernels.reset_launches()
+    res = pcg(fp.Q, bk, M=vc, tol=1e-8, maxiter=100, chunk=8)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    assert res.converged
+    assert counts["cycle_persistent"] == counts["vcycle"] \
+        == counts["dia_spmv"] > 1, counts
+    for name in SEQUENCED_STEPS[:-1]:
+        assert counts.get(name, 0) == 0, (name, counts)
+    ref = pcg(lambda v: fp.Q.matvec(v), bk, M=lambda r: cp.run_program_plain(
+        vc.program(), vc, r * vc.mask_flat).clone(), tol=1e-8, maxiter=100,
+        chunk=8)
+    assert abs(res.niters - ref.niters) <= 1, (res.niters, ref.niters)
 
 
 # ---------------------------------------------------------------------------

@@ -33,17 +33,22 @@ of each op) and ends every cold visit in buffer 0, so the cycle leaves z
 in vc's fine x buffer.  The residual before a restriction is computed
 inside the restriction, which reads each fine entry once.
 
-The program is what the persistent PCG kernel (csrc/pcg_persistent.cu)
-runs inside its iteration loop: the ops as an int32 table (``OP_WORDS``
-per op) and the levels as an int64 table of pointers, sizes and offsets
-(``LEVEL_WORDS`` per level), both in device memory, copied into each
-block's shared memory when the kernel starts.
+The program is what the two persistent kernels run, through the device
+interpreter they share (csrc/cycle_program.cuh): K5 (csrc/
+pcg_persistent.cu) inside its PCG iteration loop, with r as level 0's
+right-hand side, and the one-launch cycle (csrc/cycle_persistent.cu,
+``grid_fused.vcycle``), with the caller's b.  A ``FusedVCycle`` owns one
+program (``vc.program()``), whichever kernel runs it.  The ops are an
+int32 table (``OP_WORDS`` per op) and the levels an int64 table of
+pointers, sizes and offsets (``LEVEL_WORDS`` per level), both in device
+memory, copied into each block's shared memory when a kernel starts.
 
 Every op runs on all blocks in grid-stride loops and ends at a grid-wide
-barrier, except the cycle's last op: the kernel's next r.z reads z[i]
-only in the thread that wrote it.  Small levels are grid ops too: on the
-H100, one block walking a level alone between block barriers made the
-chunk slower at every threshold tried (PERF.md, section 6).
+barrier, except the cycle's last op: K5's next r.z reads z[i] only in
+the thread that wrote it, and the one-launch cycle ends there.  Small
+levels are grid ops too: on the H100, one block walking a level alone
+between block barriers made the K5 chunk slower at every threshold tried
+(PERF.md, section 6).
 
 ``run_program_plain`` executes the same records, buffers included, with
 the plain torch steps of ``grid_fused`` (any device); it equals
@@ -63,8 +68,8 @@ ZERO, CHEB_STEP, RESID_RESTRICT, PROLONG, COARSE_GEMV, COARSE_REDUCE = \
 OP_NAMES = ("ZERO", "CHEB_STEP", "RESID_RESTRICT", "PROLONG", "COARSE_GEMV",
             "COARSE_REDUCE")
 
-# The table layouts; csrc/pcg_persistent.cu has the same numbers and
-# kernels.py checks them against the built library.  An op is 4 int32:
+# The table layouts; csrc/cycle_program.cuh has the same numbers, and
+# grid_fused._check_layout checks them against the built library.  An op is 4 int32:
 # kind | level << 8 | flags << 16, s (float32 bits), c (float32 bits), 0.
 OP_WORDS = 4
 F_FIRST, F_COLD, F_SRC, F_DST, F_NSRC, F_NO_BARRIER = 1, 2, 4, 8, 16, 32
@@ -178,23 +183,37 @@ def _check_nodal_c(vc):
                                  f"crosses node blocks of {F} rows")
 
 
+def _check_storage(vc):
+    """The kernels read every level's A, C and M planes and T as one
+    storage type."""
+    types = {t.dtype for t in (*vc.A_planes, *vc.C_planes, *vc.M_planes,
+                               vc.T)}
+    if len(types) != 1:
+        raise TypeError(f"CycleProgram: the planes and T must share one "
+                        f"storage type, not {sorted(map(str, types))}")
+
+
 class CycleProgram:
     """A FusedVCycle's cycle as op records plus its level descriptor
     table, both as host numpy arrays and as tensors on the cycle's device
-    (built once).  The pointers are those of vc's own buffers and of the
-    program's second x buffer per level, so the program is valid for as
-    long as it and vc live."""
+    (built once, by ``vc.program()``).  The pointers are those of vc's own
+    buffers and of the program's second x buffer per level, so the
+    program is valid for as long as vc lives."""
 
     def __init__(self, vc):
         spec = vc.spec
         _check_nodal_c(vc)
-        self.vc = vc
+        _check_storage(vc)
         self.ops = compile_ops(spec)
         L = len(spec.levels)
         # each level's second x buffer; buffer 0 is vc's own
         self.x_alt = [torch.zeros_like(x) for x in vc._x]
-        # the coarse GEMV's column splits: at most 16 columns each (a
-        # split is then a couple of rounds of memory latency), at most 64
+        # the coarse GEMV's column splits: 16 columns or fewer each while
+        # nc <= 1024 (a split is then a couple of rounds of memory
+        # latency), at most 64 splits, so longer ones above that: 66
+        # columns at the bench path's nc = 4224, where the GEMV and its
+        # reduce stream T (35.7 MB in bf16) at 0.53 of their bytes bound
+        # on the H100, as near as a level-0 step comes (PERF.md, section 6)
         self.nsplit = max(1, min(64, -(-spec.nc // 16)))
         self.partial = torch.zeros(self.nsplit * spec.nc,
                                    dtype=torch.float32, device=vc.device)

@@ -13,21 +13,26 @@ stay DIA there and ``slots`` maps canonical dofs into it.  Each level
 holds ``rows = prod(lead) * K`` rows of 128 and no further padding; its A
 and C planes are contiguous (nd, rows*128) tensors, diagonal-major.
 
-The cycle (``vcycle``) is one sequence of host calls over those tensors.
-With CUDA tensors every step is a hand-written kernel (K1 in
-csrc/dia.cu for the t-passes and residuals, K2's pieces in
-csrc/vcycle.cu for the Chebyshev C-apply, restriction, prolongation and
-coarse GEMV); with CPU tensors the same sequence runs the plain torch
-versions defined here (``vcycle_plain`` runs them on any device).
+The cycle (``vcycle``) on a CUDA tensor is ONE persistent cooperative
+launch of kernel K2 (csrc/cycle_persistent.cu): the cycle is compiled
+once into an op program (amg/cycle_program.py, ``vc.program()``), which
+the kernel runs through the device interpreter it shares with K5
+(csrc/cycle_program.cuh).  On a CPU tensor ``vcycle`` runs the program's
+plain interpreter, ``run_program_plain``, which equals ``vcycle_plain``
+(the host sequence of the plain torch steps defined here) bit for bit.
+``vcycle_sequenced`` keeps the earlier design for comparison on the card
+(no route takes it): the same host sequence with one hand-written launch
+per step, K1 (csrc/dia.cu) for the t-passes and residuals and K2's pieces
+(csrc/vcycle.cu) for the Chebyshev C-apply, restriction, prolongation and
+coarse GEMV, 78 launches per V-cycle at the bench path's 4 levels.
 
 Around the cycle: ``FusedPCG`` / ``pcg_fused`` run PCG in chunks of
 iterations with no host read inside a chunk.  On the card a chunk is ONE
 persistent cooperative launch of kernel K5 (csrc/pcg_persistent.cu),
-which runs the PCG body and the cycle, compiled once into an op program
-(amg/cycle_program.py), inside the kernel; ``pcg_chunk_plain`` is its
-plain version.  ``pcg_chunk_sequenced`` keeps the earlier design (three
-csrc/pcg.cu launches per iteration around K2's host-sequenced cycle) for
-comparison on the card; no route takes it.
+which runs the PCG body and the same op program, inside the kernel;
+``pcg_chunk_plain`` is its plain version.  ``pcg_chunk_sequenced`` keeps
+the earlier design (three csrc/pcg.cu launches per iteration around
+``vcycle_sequenced``) for comparison on the card; no route takes it.
 ``setup_grid_fused(reference=True)`` also returns the f64
 ``MGPreconditioner`` of the same padded hierarchy, the step-by-step
 reference of both.
@@ -48,7 +53,7 @@ from ..sparse import HostCSR
 from ..sparse.dia_kernels import (KernelDIA, _cheb_coefs, blockinv_dia,
                                   dia_spmv, dia_spmv_plain)
 from ..sparse.dia import DIA
-from .cycle_program import CycleProgram
+from .cycle_program import CycleProgram, run_program_plain
 from .grid import _grid_coarse, _lmax_blockinv, _node_blocks
 from .hierarchy import MGPreconditioner
 from .structured import BlockChebyshevSmoother
@@ -373,11 +378,24 @@ def vcycle_plain(vc: "FusedVCycle", b):
 
 
 def vcycle(vc: "FusedVCycle", b):
-    """One cycle: the kernels on a CUDA tensor, the plain version on a CPU
-    tensor.  b must be pre-masked float32 of length vc.nflat.  Returns
-    vc's fine x buffer (overwritten by the next cycle)."""
+    """One cycle z = M b: one launch of the persistent cycle kernel on a
+    CUDA tensor, its plain version (``run_program_plain`` of the same op
+    program) on a CPU tensor.  b must be pre-masked float32 of length
+    vc.nflat.  Returns vc's fine x buffer (overwritten by the next
+    cycle)."""
     if b.device.type == "cpu":
-        return _run_cycle(vc, b, _PlainSteps)
+        return run_program_plain(vc.program(), vc, b)
+    out = _cycle_persistent(vc, b)
+    kernels.LAUNCHES["vcycle"] += 1
+    return out
+
+
+def vcycle_sequenced(vc: "FusedVCycle", b):
+    """The earlier design of the cycle, kept to time it beside the
+    one-launch kernel on the card: one hand-written launch per step (K2's
+    pieces of csrc/vcycle.cu, K1's residual form), sequenced from the
+    host.  CUDA tensors only; no route calls it.  Same contract as
+    vcycle."""
     kernels.require(b, "b", dtype=torch.float32, numel=vc.nflat,
                     device=vc.device)
     out = _run_cycle(vc, b, _CudaSteps)
@@ -413,7 +431,15 @@ class FusedVCycle:
         self._xc = torch.zeros(spec.nc, **f32)
         self._partial = torch.zeros(
             _coarse_nsplit(spec.rows_c, spec.nc) * spec.nc, **f32)
+        self._program = None
         self._validate()
+
+    def program(self) -> CycleProgram:
+        """The cycle's op program (compiled once), which the one-launch
+        cycle, K5 and run_program_plain all run."""
+        if self._program is None:
+            self._program = CycleProgram(self)
+        return self._program
 
     def _validate(self):
         """The kernels index these tensors without bounds checks: refuse
@@ -793,9 +819,9 @@ def _chunk_inputs(fp: "FusedPCG", x, r, p, z, rz_prev, chunk, grid=0):
 def pcg_chunk_sequenced(fp: "FusedPCG", x, r, p, z, rz_prev, chunk):
     """The earlier design of K5, kept to time it beside the persistent
     kernel on the card: per iteration three csrc/pcg.cu launches (pcg_rz,
-    pcg_pq, pcg_xr) and K2's host-sequenced cycle, then pcg_rz and
-    pcg_finish.  CUDA tensors only; no route calls it.  Same contract as
-    pcg_chunk."""
+    pcg_pq, pcg_xr) and the host-sequenced cycle (vcycle_sequenced), then
+    pcg_rz and pcg_finish.  CUDA tensors only; no route calls it.  Same
+    contract as pcg_chunk."""
     vc = fp.vc
     Q = fp.Q
     n = vc.nflat
@@ -827,7 +853,7 @@ def pcg_chunk_sequenced(fp: "FusedPCG", x, r, p, z, rz_prev, chunk):
             n, w.pq_parts.data_ptr(), w.rzbuf.data_ptr(), it,
             w.norm_parts.data_ptr(), w.stats.data_ptr(), stream), "pcg_xr")
         kernels.LAUNCHES["pcg_xr"] += 1
-        vcycle(vc, r)
+        vcycle_sequenced(vc, r)
         cur = 1 - cur
     rz_pass()
     kernels.check(lib.tpuamg_pcg_finish(
@@ -846,46 +872,101 @@ _PERSISTENT_ARGS = ("levels", "nlevels", "ops", "nops", "Q_planes", "x", "r",
                     "nsplit")
 
 
-def _check_layout():
-    """The library's table layouts are amg/cycle_program.py's."""
+# the host argument vector of tpuamg_cycle_persistent, in its order
+_CYCLE_ARGS = ("levels", "nlevels", "ops", "nops", "b", "T", "bc", "xc",
+               "partial", "rows_c", "nc", "nsplit")
+_KERNEL_ARGS = {"pcg": _PERSISTENT_ARGS, "cycle": _CYCLE_ARGS}
+
+
+def _check_layout(kernel):
+    """The library's table layouts are amg/cycle_program.py's; kernel is
+    "pcg" (K5) or "cycle" (the one-launch cycle)."""
     from . import cycle_program as cp
     lay = (ctypes.c_int * 4)()
-    kernels.lib().tpuamg_pcg_persistent_layout(lay)
-    want = (cp.LEVEL_WORDS, cp.OP_WORDS, len(_PERSISTENT_ARGS),
+    getattr(kernels.lib(), f"tpuamg_{kernel}_persistent_layout")(lay)
+    want = (cp.LEVEL_WORDS, cp.OP_WORDS, len(_KERNEL_ARGS[kernel]),
             kernels.MAX_DIAGS)
     if tuple(lay) != want:
-        raise RuntimeError(f"pcg_persistent: library layout {tuple(lay)} "
-                           f"!= host layout {want}")
+        raise RuntimeError(f"{kernel}_persistent: library layout "
+                           f"{tuple(lay)} != host layout {want}")
 
 
-# The persistent launch: one block (of the kernel's 512 threads) per SM.
-# On the H100, 1024 threads per block or more resident blocks made the
-# 8-iteration chunk slower (PERF.md, section 6).
+# The persistent launches: one block (of the kernels' 512 threads) per
+# SM.  On the H100, 1024 threads per block or more resident blocks made
+# the 8-iteration K5 chunk slower (PERF.md, section 6).
 BLOCKS_PER_SM = 1
 
 
 @functools.lru_cache(maxsize=None)
-def _persistent_occupancy(planes_bf16, smem, device_index):
-    """(resident blocks per SM, SMs) of the persistent kernel, once per
-    plane type, staged table size and device."""
-    _check_layout()
+def _persistent_occupancy(kernel, planes_bf16, smem, device_index):
+    """(resident blocks per SM, SMs) of a persistent kernel ("pcg" or
+    "cycle"), once per plane type, staged table size and device."""
+    _check_layout(kernel)
     out = (ctypes.c_int * 2)()
     with torch.cuda.device(device_index):
-        kernels.check(kernels.lib().tpuamg_pcg_persistent_occupancy(
-            int(planes_bf16), int(smem), out), "pcg_persistent occupancy")
+        kernels.check(getattr(
+            kernels.lib(), f"tpuamg_{kernel}_persistent_occupancy")(
+                int(planes_bf16), int(smem), out),
+            f"{kernel}_persistent occupancy")
     return int(out[0]), int(out[1])
+
+
+def _grid_of(kernel, vc, smem):
+    dev = vc.device.index if vc.device.index is not None \
+        else torch.cuda.current_device()
+    per_sm, sms = _persistent_occupancy(
+        kernel, kernels.storage_flag(vc.A_planes[0]), smem, dev)
+    return sms * min(per_sm, BLOCKS_PER_SM), per_sm, sms
 
 
 def persistent_grid(fp: "FusedPCG"):
     """(grid, resident blocks per SM, SMs) of fp's persistent launch: SMs
     x min(occupancy, BLOCKS_PER_SM)."""
-    vc = fp.vc
-    dev = vc.device.index if vc.device.index is not None \
-        else torch.cuda.current_device()
-    per_sm, sms = _persistent_occupancy(
-        kernels.storage_flag(vc.A_planes[0]), fp.program().shared_bytes(),
-        dev)
-    return sms * min(per_sm, BLOCKS_PER_SM), per_sm, sms
+    return _grid_of("pcg", fp.vc, fp.program().shared_bytes())
+
+
+def cycle_grid(vc: "FusedVCycle"):
+    """(grid, resident blocks per SM, SMs) of vc's one-launch cycle."""
+    return _grid_of("cycle", vc, vc.program().shared_bytes())
+
+
+def _cycle_persistent(vc: "FusedVCycle", b, _grid=None, _ops=None):
+    """One cycle as one cooperative launch; returns vc's fine x buffer.
+    _grid overrides the grid (a card test asks for one too large to be
+    co-resident); _ops, an int32 (nops, OP_WORDS) table on the device,
+    runs other records of the same program (chip_smoke.py times single
+    ops with it)."""
+    kernels.require(b, "b", dtype=torch.float32, numel=vc.nflat,
+                    device=vc.device)
+    prog = vc.program()
+    for t in (vc._x[0], prog.x_alt[0], vc._d[0]):
+        if kernels.overlaps(b, t):
+            raise ValueError("vcycle: b overlaps a level-0 buffer that the "
+                             "cycle writes")
+    ops = prog.ops_dev if _ops is None else _ops
+    kernels.require(ops, "ops", dtype=torch.int32, device=vc.device)
+    spec = vc.spec
+    smem = prog.level_table.nbytes + ops.numel() * ops.element_size()
+    grid, per_sm, sms = _grid_of("cycle", vc, smem)
+    grid = grid if _grid is None else int(_grid)
+    vals = dict(
+        levels=prog.levels_dev.data_ptr(), nlevels=len(spec.levels),
+        ops=ops.data_ptr(), nops=ops.shape[0], b=b.data_ptr(),
+        T=vc.T.data_ptr(), bc=vc._bc.data_ptr(), xc=vc._xc.data_ptr(),
+        partial=prog.partial.data_ptr(), rows_c=spec.rows_c, nc=spec.nc,
+        nsplit=prog.nsplit)
+    args = (ctypes.c_longlong * len(_CYCLE_ARGS))(
+        *(int(vals[k]) for k in _CYCLE_ARGS))
+    rc = kernels.lib().tpuamg_cycle_persistent(
+        args, len(_CYCLE_ARGS), kernels.storage_flag(vc.A_planes[0]), grid,
+        smem, kernels.stream_ptr())
+    if rc != 0:
+        raise RuntimeError(
+            f"CUDA kernel cycle_persistent failed: cudaError {rc} on a grid "
+            f"of {grid} blocks x 512 threads ({sms} SMs x {per_sm} "
+            f"resident blocks per SM)")
+    kernels.LAUNCHES["cycle_persistent"] += 1
+    return vc._x[0]
 
 
 def _pcg_chunk_persistent(fp: "FusedPCG", x, r, p, z, rz_prev, chunk,
@@ -956,13 +1037,10 @@ class FusedPCG:
         self.vc = vc
         self.Q = Q
         self._work = None
-        self._program = None
 
     def program(self) -> CycleProgram:
-        """The cycle's op program (compiled once)."""
-        if self._program is None:
-            self._program = CycleProgram(self.vc)
-        return self._program
+        """The cycle's op program: vc's own (vc.program())."""
+        return self.vc.program()
 
     def run_chunk(self, x, r, p, z, rz_prev, chunk):
         return pcg_chunk(self, x, r, p, z, rz_prev, int(chunk))
