@@ -25,8 +25,8 @@ Phases, one line of numbers each:
   6. gamma 1, 1e6 and 1e8 at n=512 to tol 2e-5, f32 storage.
 The second slice, solve_system's grid branch (problems/solve.py) and the
 bidomain_2d driver, adds:
-  7. K3 (the Chebyshev sweep, csrc/cheb.cu) against its plain version on
-     level 0 of the route-(c) hierarchy at n=256, f32 storage;
+  7. K3 (the Chebyshev sweep) against its plain version on the
+     route-(c) hierarchy at n=256, f32 storage;
   8. K5 (the PCG chunk) against its plain chunk at n=256 in the driver's
      configuration (metric_schwarz: W-cycle, coarse_dof 100, Chebyshev
      degree 3; gamma 1e6, f32); the route-(a) solve to 1e-8 beside the
@@ -73,6 +73,20 @@ shares with K5, csrc/cycle_program.cuh), with K1's residual form inside:
   5, 8, 10. route (b), route (a)'s first cycle and refine make one
      cycle_persistent launch per cycle and none of the sequenced cycle's
      (K2_STEPS, K1's dia_residual).
+The sixth slice makes K3 one persistent cooperative launch per smoother
+application (csrc/cheb_persistent.cu, a sweep program through the same
+interpreter):
+  1. the new kernel's ptxas lines;
+  7. at every level of the route-(c) hierarchy, smooth and
+     smooth_residual at iters 1 and 2 against the plain sweep and against
+     the earlier design (cheb_sweep_sequenced, csrc/cheb.cu), one launch
+     per application and none of the earlier design's; both designs timed
+     in turns (events) and by their device time (profiler), with the
+     ops' streamed bytes beside the inputs-once bound;
+  9. route (c) launches only the new K3, whose device time per executed
+     iteration the profile shows;
+ 12. K6's device time per step (profiler) beside its event time; its
+     shards' sweep against the new K3.
 Then a JSON line {"kernels": [...]}, the nvidia-smi line, and, last, the
 result line {"ok": true, "device": {...}}.  Any failed check raises, and
 the script exits nonzero; a watchdog ends it, with a traceback and a
@@ -205,7 +219,7 @@ def ptxas_of(log, kernel):
         if m:
             keep = kernel in m.group(1)
             if keep:
-                out.append(re.sub(r"^_Z\w*?\d+(pcg|cycle)", r"\1",
+                out.append(re.sub(r"^_Z\w*?\d+(pcg|cycle|cheb)", r"\1",
                                   m.group(1)))
         elif keep and ("Used" in line or "spill" in line):
             out.append(line.replace("ptxas info    :", "").strip())
@@ -270,6 +284,8 @@ def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4):
             ptxas_of(info["ptxas"], "pcg_persistent")))
         say("[1 build] the one-launch K2: " + " | ".join(
             ptxas_of(info["ptxas"], "cycle_persistent")))
+        say("[1 build] the one-launch K3: " + " | ".join(
+            ptxas_of(info["ptxas"], "cheb_persistent")))
     else:
         say("[1 build] skipped (rehearsal on the CPU)")
 
@@ -564,6 +580,151 @@ def chunk_errs(got, ref, chunk, what):
     return row_err, x_err, float((got[0] - ref[0]).abs().max())
 
 
+def sweep_stream(sm, iters, want_r):
+    """Bytes the one-launch K3's ops stream per application (op by op:
+    planes and vectors read once, neighbouring x entries from cache, what
+    each op writes once), and the earlier design's two passes per step,
+    its residual pass and its copy of x."""
+    from tpuamg_torch.amg import cycle_program as cp
+    n = sm.n
+    pa = sm.planesA.numel() * sm.planesA.element_size()
+    pc = sm.planesC.numel() * sm.planesC.element_size()
+    new = 0
+    for op in sm.program().ops(iters, want_r):
+        if op.kind == cp.RESIDUAL:           # A, x, b in; r (or t) out
+            new += pa + 12 * n
+        elif op.kind == cp.CHEB_STEP:        # A, C, b, x (and d) in;
+            new += pa + pc + (16 if op.first else 20) * n     # d, x out
+        else:                                # CHEB_APPLY: C, t, x (d) in
+            new += pc + (16 if op.first else 20) * n
+    k = sm.degree * iters
+    old = 8 * n + k * (pa + 12 * n) + k * (pc + 20 * n) + want_r * (
+        pa + 12 * n)
+    return new, old
+
+
+def phase7_level(dev, lv, sm, rng):
+    """Phase 7 on one level of the route-(c) hierarchy: the one-launch K3
+    (smooth and smooth_residual, iters 1 and 2) against the plain sweep
+    and the earlier design; one launch per application; both designs
+    timed in turns (events) and by their device time (profiler).  Returns
+    the kernels-line rows of the two designs at this level."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.sparse.dia_kernels import (cheb_sweep_plain,
+                                                 cheb_sweep_sequenced)
+    on_card = dev.type == "cuda"
+    nd = sm.n
+    x = torch.as_tensor(rng.standard_normal(nd), dtype=torch.float32
+                        ).to(dev)
+    bb = torch.as_tensor(rng.standard_normal(nd), dtype=torch.float32
+                         ).to(dev)
+    planes = (sm.offsA, sm.planesA, sm.offsC, sm.planesC)
+    cheb = (sm.theta, sm.coefs, sm.degree)
+
+    def seq(iters=1):
+        return cheb_sweep_sequenced(*planes, x, bb, *cheb, iters, True)
+    errs, limits, abs_err, abs_seq = {}, {}, 0.0, None
+    for iters in (1, 2):
+        kernels.reset_launches()
+        xs_k, r_k = sm.smooth_residual(None, x, bb, iters)
+        x2_k = sm.smooth(None, x, bb, iters)
+        sync(dev)
+        counts = dict(kernels.LAUNCHES)
+        if on_card:
+            check(counts == {"cheb_sweep": 2}, f"K3 level {lv}: one launch "
+                  f"per application and no cheb_sweep_sequenced launch, got "
+                  f"{counts}")
+        xs_p, r_p = cheb_sweep_plain(*planes, x, bb, *cheb, iters, True)
+        # the f32 floor: the plain sweep's own distance from the same
+        # sweep in float64 (on the coarsest levels, where x_new is a few
+        # times smaller than x, it passes 1e-5 for random inputs)
+        xs_64, r_64 = cheb_sweep_plain(
+            sm.offsA, sm.planesA.double(), sm.offsC, sm.planesC.double(),
+            x.double(), bb.double(), *cheb, iters, True)
+        floor = {"x": rel_err(xs_p, xs_64), "r": rel_err(r_p, r_64)}
+        got = {"smooth": (x2_k, xs_p, "x"),
+               "smooth_residual x": (xs_k, xs_p, "x"),
+               "smooth_residual r": (r_k, r_p, "r")}
+        abs_err = max(abs_err, float((xs_k - xs_p).abs().max()),
+                      float((r_k - r_p).abs().max()))
+        if on_card:
+            xs_s, r_s = seq(iters)
+            sync(dev)
+            got.update({"sequenced x": (xs_s, xs_p, "x"), "sequenced r":
+                        (r_s, r_p, "r"), "vs sequenced x": (xs_k, xs_s, "x"),
+                        "vs sequenced r": (r_k, r_s, "r")})
+            abs_seq = max(abs_seq or 0.0, float((xs_s - xs_p).abs().max()),
+                          float((r_s - r_p).abs().max()))
+        for key, (a, b, what) in got.items():
+            errs[f"{key} it{iters}"] = rel_err(a, b)
+            limits[f"{key} it{iters}"] = max(1e-5, 2 * floor[what])
+    bad = {k: (e, limits[k]) for k, e in errs.items()
+           if not (np.isfinite(e) and e <= limits[k])}
+    check(not bad, f"K3 level {lv}: rel errors past max(1e-5, twice the "
+          f"f32 floor): {bad}")
+    reps = 100 if on_card else 1
+    t_new = [timed_ms(lambda: sm.smooth_residual(None, x, bb), reps, dev)]
+    t_seq = []
+    dev_us = {"one launch": "not measured", "sequenced": "not measured"}
+    if on_card:
+        # in turns: sequenced, one launch, one launch, sequenced
+        t_seq = [timed_ms(seq, reps, dev)]
+        t_new.append(timed_ms(lambda: sm.smooth_residual(None, x, bb),
+                              reps, dev))
+        t_seq.append(timed_ms(seq, reps, dev))
+        for label, fn in (("one launch", lambda: sm.smooth_residual(
+                None, x, bb)), ("sequenced", seq)):
+            prof = profile_busy(lambda: [fn() for _ in range(20)], dev)
+            if prof is not None:
+                dev_us[label] = prof[1] / 20
+    ms = float(np.mean(t_new))
+    ms_s = timed_ms(lambda: sm.smooth(None, x, bb), reps, dev)
+    plain_ms = timed_ms(lambda: cheb_sweep_plain(*planes, x, bb, *cheb, 1,
+                                                 True),
+                        max(reps // 10, 1), dev) if lv == 0 else None
+    pa = sm.planesA.numel() * sm.planesA.element_size()
+    pc = sm.planesC.numel() * sm.planesC.element_size()
+    k = sm.degree
+    nbytes = pa + pc + 4 * nd * 4            # x, b in; x, r out
+    flops = (k + 1) * 2 * sm.planesA.numel() + k * (
+        2 * sm.planesC.numel() + 3 * nd)
+    bms, by = bound_ms(nbytes, flops)
+    new, old = sweep_stream(sm, 1, True)
+    prog = sm.program()
+
+    def us(v):
+        return v if isinstance(v, str) else f"{v:.2f} us"
+    say(f"[7 K3 level {lv}] n={nd} offsets A {len(sm.offsA)} C "
+        f"{len(sm.offsC)} {sm.planesA.dtype} degree {k} F {sm.F}: "
+        f"{len(prog.ops(1, True))} ops, {prog.shared_bytes(1, True)} B of "
+        f"tables | max rel err {max(errs.values()):.3e}, limits "
+        f"{min(limits.values()):.3e}-{max(limits.values()):.3e} "
+        f"{json.dumps({k: float('%.3e' % e) for k, e in errs.items()})} "
+        f"max_abs_err {abs_err:.3e} | smooth_residual one launch "
+        f"{'/'.join(f'{t:.5f}' for t in t_new)} ms (device "
+        f"{us(dev_us['one launch'])}), sequenced "
+        f"{'/'.join(f'{t:.5f}' for t in t_seq) or 'not run'} ms (device "
+        f"{us(dev_us['sequenced'])}, {2 * k + 1} launches and a copy of "
+        f"x), smooth {ms_s:.5f} ms, plain "
+        f"{'not timed' if plain_ms is None else f'{plain_ms:.5f} ms'} | bound "
+        f"{bms:.5f} ms ({by}, inputs once {nbytes} B); streamed by the "
+        f"ops {new} B = {new / HBM_BYTES_PER_S * 1e3:.5f} ms (sequenced "
+        f"{old} B = {old / HBM_BYTES_PER_S * 1e3:.5f} ms) | library: none")
+    row = dict(name="cheb_sweep", route="cuda",
+               source="tpuamg_torch/csrc/cheb_persistent.cu",
+               replaces="tpuamg/sparse/dia_pallas.py:436", launches=0,
+               max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, library_ms=None)
+    row_seq = dict(name="cheb_sweep_sequenced", route="cuda",
+                   source="tpuamg_torch/csrc/cheb.cu",
+                   replaces="tpuamg/sparse/dia_pallas.py:436", launches=0,
+                   max_abs_err=abs_seq,
+                   ms=float(np.mean(t_seq)) if t_seq else None,
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=None)
+    return row, row_seq
+
+
 def slice2(dev, kern, A512, b512, n512, n2, nrefs):
     """Phases 7-11 (module docstring).  A512, b512: phase 5's system."""
     from tpuamg_torch import kernels
@@ -577,8 +738,6 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
                                              vcycle_plain, vcycle_sequenced)
     from tpuamg_torch.config import PRESETS
     from tpuamg_torch.problems.solve import solve_system
-    from tpuamg_torch.sparse.dia_kernels import (_cheb_coefs,
-                                                 cheb_sweep_plain)
     on_card = dev.type == "cuda"
     rng = np.random.default_rng(1)
     t0 = time.perf_counter()
@@ -588,7 +747,7 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
     say(f"[7 setup] n={n2} dofs={A.shape[0]} nnz={A.nnz} assembly "
         f"{time.perf_counter() - t0:.2f} s")
 
-    # ---- 7. K3 against its plain version -------------------------------
+    # ---- 7. K3 against its plain version and its earlier design -------
     nl_amli = replace(PRESETS["metric_schwarz"], cycle_type="nl_amli",
                       amli_degree=2, dtype="float32")
     t0 = time.perf_counter()
@@ -596,56 +755,12 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
                                   dtype=torch.float32, device=dev)
     sync(dev)
     t_set = time.perf_counter() - t0
-    sm = prec.levels[0].smoother
-    x = torch.as_tensor(rng.standard_normal(nd), dtype=torch.float32
-                        ).to(dev)
-    bb = torch.as_tensor(rng.standard_normal(nd), dtype=torch.float32
-                         ).to(dev)
-    theta, coefs = _cheb_coefs(sm.lmax, sm.lmin, sm.degree, sm.kind)
-    before = kernels.LAUNCHES["cheb_sweep"]
-    xs_k, r_k = sm.smooth_residual(None, x, bb)
-    x2_k = sm.smooth(None, x, bb)
-    sync(dev)
-    check(not on_card or kernels.LAUNCHES["cheb_sweep"] == before + 2,
-          "cheb_sweep: one launch per smoother application")
-    xs_p, r_p = cheb_sweep_plain(sm.offsA, sm.planesA, sm.offsC, sm.planesC,
-                                 x, bb, theta, coefs, sm.degree, 1, True)
-    errs = {"smooth": rel_err(x2_k, xs_p), "smooth_residual x":
-            rel_err(xs_k, xs_p), "smooth_residual r": rel_err(r_k, r_p)}
-    abs_err = float(max((xs_k - xs_p).abs().max(), (r_k - r_p).abs().max()))
-    check(all(np.isfinite(e) and e <= 1e-5 for e in errs.values()),
-          f"K3 vs plain: rel errors {errs} > 1e-5")
-    reps = 100 if on_card else 1
-    ms = timed_ms(lambda: sm.smooth_residual(None, x, bb), reps, dev)
-    ms_s = timed_ms(lambda: sm.smooth(None, x, bb), reps, dev)
-    plain_ms = timed_ms(lambda: cheb_sweep_plain(
-        sm.offsA, sm.planesA, sm.offsC, sm.planesC, x, bb, theta, coefs,
-        sm.degree, 1, True), max(reps // 10, 1), dev)
-    pa = sm.planesA.numel() * sm.planesA.element_size()
-    pc = sm.planesC.numel() * sm.planesC.element_size()
-    k = sm.degree
-    nbytes = pa + pc + 4 * nd * 4            # x, b in; x, r out
-    flops = (k + 1) * 2 * sm.planesA.numel() + k * (
-        2 * sm.planesC.numel() + 3 * nd)
-    bms, by = bound_ms(nbytes, flops)
-    # the algorithm's own stream: per step an A pass (planes, x, b, t)
-    # and a C pass (planes, t, d and x read and written); one more A pass
-    stream = (k + 1) * (pa + 12 * nd) + k * (pc + 20 * nd)
-    say(f"[7 K3 cheb_sweep] level 0 n={nd} offsets A {len(sm.offsA)} C "
-        f"{len(sm.offsC)} {sm.planesA.dtype} degree {k} | rel err "
-        f"{errs} max_abs_err {abs_err:.3e} | smooth_residual {ms:.5f} ms "
-        f"smooth {ms_s:.5f} ms plain {plain_ms:.5f} ms | bound "
-        f"{bms:.5f} ms ({by}, inputs once {nbytes} B); streamed "
-        f"{stream} B = {stream / HBM_BYTES_PER_S * 1e3:.5f} ms | launches "
-        f"per application: 1 call, {2 * k + 1} device launches | library: "
-        f"none | hierarchy set-up {t_set:.2f} s")
-    k3 = dict(name="cheb_sweep", route="cuda",
-              source="tpuamg_torch/csrc/cheb.cu",
-              replaces="tpuamg/sparse/dia_pallas.py:436", launches=0,
-              max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-              bound_by=by, library_ms=None)
-    kern.append(k3)
-    del sm
+    say(f"[7 setup] route-(c) hierarchy {t_set:.2f} s: level rows "
+        f"{[L.smoother.n for L in prec.levels]}")
+    rows = [phase7_level(dev, lv, L.smoother, rng)
+            for lv, L in enumerate(prec.levels)]
+    k3 = rows[0][0]
+    kern.extend(rows[0])        # level 0's: the one launch, the sequenced
 
     # ---- 8. K5 against its plain chunk; routes (a) and (b) -------------
     drv = replace(PRESETS["metric_schwarz"], dtype="float32")
@@ -867,7 +982,9 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
             f"{trc:.3e} | setup {rep_c.t_setup:.2f} s solve "
             f"{rep_c.t_solve:.3f} s ({rep_c.t_solve / itc * 1e3:.2f} "
             f"ms/iteration) | per iteration: cheb_sweep "
-            f"{counts.get('cheb_sweep', 0) / itc:.1f}, K1 dia_residual "
+            f"{counts.get('cheb_sweep', 0) / itc:.1f}, cheb_sweep_sequenced "
+            f"{counts.get('cheb_sweep_sequenced', 0) / itc:.1f}, "
+            f"K1 dia_residual "
             f"{counts.get('dia_residual', 0) / itc:.1f}, K1 dia_spmv "
             f"{counts.get('dia_spmv', 0) / itc:.1f}")
         check(rep_c.route == "c" and rep_c.converged and trc < 1e-4,
@@ -877,9 +994,12 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
             for kname in ("cheb_sweep", "dia_residual", "dia_spmv"):
                 check(counts.get(kname, 0) > 0,
                       f"route (c): kernel {kname} not launched")
+            check(not counts.get("cheb_sweep_sequenced"),
+                  f"route (c) launched the sequenced K3: {counts}")
             k3["launches"] = cheb_counts = counts["cheb_sweep"]
         if pallas is False:
-            check(counts.get("cheb_sweep", 0) == 0,
+            check(counts.get("cheb_sweep", 0) == 0
+                  and counts.get("cheb_sweep_sequenced", 0) == 0,
                   "route (c) pallas=False launched K3")
     check(abs(res_c[None].niters - res_c[False].niters) <= 2,
           f"route (c) kernels {res_c[None].niters} vs plain "
@@ -900,10 +1020,16 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
             per_it = busy / 4      # 3 iterations + the start's M r0
             ran_c = cheb_counts / max(per_cycle, 1)
             idle = 1 - per_it * ran_c / (res_c[None].t_solve * 1e6)
+            k3_us = sum(u for kk, _, u in rows_prof
+                        if "cheb_persistent" in kk) / 4
+            old_k3 = [kk for kk, _, _ in rows_prof
+                      if "cheb_t_kernel" in kk or "cheb_d_kernel" in kk]
+            check(not old_k3, f"route (c) ran the sequenced K3: {old_k3}")
             say(f"[9 profile] route (c), 3 iterations: device busy "
                 f"{busy:.1f} us ({per_it:.1f} us per iteration, the start "
-                f"counted as one) of {wall * 1e6:.1f} us wall with the "
-                f"profiler on; {per_cycle:g} K3 calls per cycle, "
+                f"counted as one; K3 {k3_us:.1f} us of it in {per_cycle:g} "
+                f"launches) of {wall * 1e6:.1f} us wall with the "
+                f"profiler on; {per_cycle:g} K3 launches per cycle, "
                 f"{ran_c:g} cycles executed in the solve; idle share "
                 f"without it {idle:.4f}")
             say("[9 profile] device us by kernel (calls, total): "
@@ -1035,7 +1161,10 @@ def phase12(dev, kern, prob):
                         for r in range(nsh)])
     rs = torch.cat([dia_spmv(oA, pAs[r], xh, bs[r], x_pad=h)
                     for r, xh in enumerate(halo_shards(xs, h, nsh))])
+    before = kernels.LAUNCHES["cheb_sweep"]
     x3, r3 = cheb_sweep(oA, pA, oC, pC, x, bb, theta, coefs, k, 1, True)
+    check(not on_card or kernels.LAUNCHES["cheb_sweep"] == before + 1,
+          "phase 12: K3's sweep of the whole level is one launch")
     y1, r1 = sm.smooth_residual(None, x, bb)
     y1, r1 = y1.clone(), r1.clone()
     y0 = sm.smooth(None, x, bb).clone()
@@ -1059,6 +1188,16 @@ def phase12(dev, kern, prob):
                         max(reps // 20, 2), dev)
     ms_sr = timed_ms(lambda: sm.smooth_residual(None, x, bb), reps // 2 or 1,
                      dev)
+    # the kernel's own device time per step, apart from the host's cost
+    # of each launch (the event time above is over back-to-back launches)
+    dev_us = "not measured"
+    if on_card:
+        prof = profile_busy(lambda: [cheb_step(
+            oA, pA, oC, pC, xh, h, bb, dd, False, a1, c1, F, x_out=xo,
+            d_out=dd) for _ in range(20)], dev)
+        if prof is not None:
+            dev_us = sum(u for kk, _, u in prof[0]
+                         if "cheb_step_kernel" in kk) / 20
     s_b = pA.element_size()
     nbytes = (len(oA) + len(oC)) * n * s_b + 4 * (n + 2 * h) + 16 * n
     flops = 2 * (len(oA) + len(oC)) * n + 4 * n
@@ -1066,8 +1205,12 @@ def phase12(dev, kern, prob):
     say(f"[12 K6 cheb_step] level 0 n={n} halo {h} F={F} offsets A "
         f"{len(oA)} C {len(oC)} {pA.dtype}: {nsh} shards, steps vs plain "
         f"max rel err {max(errs):.3e} max_abs_err {abs_err:.3e}; vs K3 "
-        f"{vs_k3} | step {ms:.5f} ms plain {plain_ms:.5f} ms | bound "
-        f"{bms:.5f} ms ({by}, {nbytes} B) -> {bms / ms:.3f} of bound | "
+        f"{vs_k3} | step {ms:.5f} ms, device time "
+        f"{dev_us if isinstance(dev_us, str) else '%.2f us' % dev_us} per "
+        f"step, plain {plain_ms:.5f} ms | bound {bms:.5f} ms ({by}, "
+        f"{nbytes} B) -> {bms / ms:.3f} of bound by events"
+        + ("" if isinstance(dev_us, str) else
+           f", {bms * 1e3 / dev_us:.3f} by device time") + " | "
         f"smooth_residual (degree {k}: {k} exchanges + K6, 1 exchange + "
         f"K1 padded residual) {ms_sr:.5f} ms | library: none")
     row = dict(name="cheb_step", route="cuda",

@@ -323,11 +323,12 @@ def _enum_values(src, name):
 
 
 def test_table_layouts_match_cuda_source():
-    """The words that cycle_program.py and grid_fused.py write are the
-    ones the CUDA sources read: the tables in csrc/cycle_program.cuh,
-    which both persistent kernels include, and each kernel's host
-    argument vector in its own source (the card checks the built library
-    too)."""
+    """The words that cycle_program.py, grid_fused.py and dia_kernels.py
+    write are the ones the CUDA sources read: the tables in
+    csrc/cycle_program.cuh, which the three persistent kernels include,
+    each kernel's host argument vector in its own source, and the codes
+    by which a sweep's level table names the call's vectors (the card
+    checks the built library too)."""
     csrc = Path(cp.__file__).resolve().parents[1] / "csrc"
     src = (csrc / "cycle_program.cuh").read_text()
     lw = _enum_values(src, "LevelWord")
@@ -343,9 +344,11 @@ def test_table_layouts_match_cuda_source():
         assert lw["k" + c] == getattr(cp, "L_" + p), c
     ops = _enum_values(src, "OpKind")
     assert [ops[k] for k in ("kZero", "kChebStep", "kResidRestrict",
-                             "kProlong", "kCoarseGemv", "kCoarseReduce")] \
+                             "kProlong", "kCoarseGemv", "kCoarseReduce",
+                             "kResidual", "kChebApply")] \
         == [cp.ZERO, cp.CHEB_STEP, cp.RESID_RESTRICT, cp.PROLONG,
-            cp.COARSE_GEMV, cp.COARSE_REDUCE]
+            cp.COARSE_GEMV, cp.COARSE_REDUCE, cp.RESIDUAL, cp.CHEB_APPLY]
+    assert len(ops) == len(cp.OP_NAMES)
     flags = _enum_values(src, "OpFlag")
     assert flags == dict(fFirst=cp.F_FIRST, fCold=cp.F_COLD, fSrc=cp.F_SRC,
                          fDst=cp.F_DST, fNSrc=cp.F_NSRC,
@@ -353,13 +356,19 @@ def test_table_layouts_match_cuda_source():
     assert re.search(r"constexpr int kOpWords = %d;" % cp.OP_WORDS, src)
     assert re.search(r"constexpr int kMaxDiags = %d;" % MAX_DIAGS, src)
     for name, host in (("pcg_persistent.cu", grid_fused._PERSISTENT_ARGS),
-                       ("cycle_persistent.cu", grid_fused._CYCLE_ARGS)):
+                       ("cycle_persistent.cu", grid_fused._CYCLE_ARGS),
+                       ("cheb_persistent.cu", dia_kernels._CHEB_ARGS)):
         ksrc = (csrc / name).read_text()
         assert '#include "cycle_program.cuh"' in ksrc, name
         args = _enum_values(ksrc, "ArgWord")
         assert args.pop("kNArgs") == len(host), name
         assert [k[1:].lower() for k in sorted(args, key=args.get)] == [
             k.replace("_", "").lower() for k in host], name
+    assert grid_fused._KERNEL_ARGS["cheb"] is dia_kernels._CHEB_ARGS
+    calls = _enum_values((csrc / "cheb_persistent.cu").read_text(),
+                         "CallVector")
+    assert calls == dict(vX=cp.CALL_X, vB=cp.CALL_B, vXOut=cp.CALL_X_OUT,
+                         vR=cp.CALL_R, kNCall=4)
 
 
 # ---------------------------------------------------------------------------

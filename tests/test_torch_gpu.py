@@ -232,7 +232,9 @@ def test_pcg_route_b_one_cycle_launch_per_iteration(cycle):
 
 def _cheb_inputs(dev, storage, n=98_306, F=2, seed=3):
     """A diagonally dominant random DIA over a 2D-grid-like offset set and
-    its (2F-1)-offset block inverse, as the grid path builds them."""
+    its (2F-1)-offset block inverse, zero across node blocks of F rows, as
+    the grid path builds them (n = 98,306 is no multiple of 32: a warp of
+    the kernel runs past the last row)."""
     from tpuamg_torch.sparse.dia_kernels import _cheb_coefs
     rng = np.random.default_rng(seed)
     offsA = (-2 * 257 - 1, -2 * 257, -2, -1, 0, 1, 2, 2 * 257, 2 * 257 + 1)
@@ -241,6 +243,9 @@ def _cheb_inputs(dev, storage, n=98_306, F=2, seed=3):
     offsC = tuple(range(-(F - 1), F))
     cplanes = rng.standard_normal((len(offsC), n)) * 0.05
     cplanes[offsC.index(0)] += 0.5
+    f = np.arange(n) % F
+    for d, o in enumerate(offsC):
+        cplanes[d][(f + o < 0) | (f + o >= F)] = 0.0
     theta, coefs = _cheb_coefs(2.2, 0.275, 3)
     x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32)
     b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32)
@@ -277,6 +282,192 @@ def test_cheb_sweep_kernel_matches_plain(storage, want_r):
     # one launch count per smoother application, x left unchanged
     assert kernels.LAUNCHES["cheb_sweep"] == before + 2
     assert torch.equal(x, _cheb_inputs(dev, storage)[4])
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("want_r", [False, True])
+def test_cheb_sweep_sequenced_matches_plain(storage, want_r):
+    """The earlier design of K3 (csrc/cheb.cu, two launches per step),
+    kept for comparison on the card, against plain; it makes no launch of
+    the one-launch kernel and leaves x unchanged."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.sparse.dia_kernels import (cheb_sweep_plain,
+                                                 cheb_sweep_sequenced)
+    dev = _card()
+    offsA, pA, offsC, pC, x, b, theta, coefs = _cheb_inputs(dev, storage)
+    kernels.reset_launches()
+    for iters in (1, 2):
+        xk, rk = cheb_sweep_sequenced(offsA, pA, offsC, pC, x, b, theta,
+                                      coefs, 3, iters, want_r)
+        torch.cuda.synchronize()
+        xp, rp = cheb_sweep_plain(offsA, pA, offsC, pC, x, b, theta, coefs,
+                                  3, iters, want_r)
+        assert _rel(xk, xp) < 1e-5, iters
+        assert rk is None if not want_r else _rel(rk, rp) < 1e-5
+    assert dict(kernels.LAUNCHES) == {"cheb_sweep_sequenced": 2}
+    assert torch.equal(x, _cheb_inputs(dev, storage)[4])
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+def test_cheb_sweep_kernel_node_blocks_of_three(storage):
+    """F = 3 does not divide a warp: each step is two ops of the one
+    launch (RESIDUAL into t, then CHEB_APPLY), still one launch per
+    application."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.sparse.dia_kernels import cheb_sweep, cheb_sweep_plain
+    dev = _card()
+    offsA, pA, offsC, pC, x, b, theta, coefs = _cheb_inputs(
+        dev, storage, n=98_307, F=3)
+    assert offsC == (-2, -1, 0, 1, 2)
+    kernels.reset_launches()
+    for iters in (1, 2):
+        for want_r in (False, True):
+            xk, rk = cheb_sweep(offsA, pA, offsC, pC, x, b, theta, coefs, 3,
+                                iters, want_r)
+            torch.cuda.synchronize()
+            xp, rp = cheb_sweep_plain(offsA, pA, offsC, pC, x, b, theta,
+                                      coefs, 3, iters, want_r)
+            assert _rel(xk, xp) < 1e-5, (iters, want_r)
+            if want_r:
+                assert _rel(rk, rp) < 1e-5, iters
+    assert dict(kernels.LAUNCHES) == {"cheb_sweep": 4}
+
+
+def _route_c_hierarchy(dev, n=64):
+    """The route-(c) hierarchy (setup_grid, NL-AMLI(2), f32) at n."""
+    from dataclasses import replace
+    from tpuamg_torch.amg.grid import setup_grid
+    from tpuamg_torch.config import PRESETS
+    from tpuamg_torch.fem import mms
+    from tpuamg_torch.problems.bidomain import Params, get_mesh, get_system
+    p = Params(2.0, 3.0, 1e6)
+    A, _, _, _ = get_system(get_mesh(n, 2), mms.setup_bidomain_mms(p, 2), p)
+    prm = replace(PRESETS["metric_schwarz"], cycle_type="nl_amli",
+                  amli_degree=2, dtype="float32")
+    prec, slots, nd = setup_grid(A, (n + 1, n + 1), F=2, params=prm,
+                                 dtype=torch.float32, device=dev)
+    return prec, nd
+
+
+def test_cheb_sweep_kernel_every_level():
+    """Every level of the route-(c) hierarchy: smooth and smooth_residual,
+    iters 1 and 2, against the plain sweep, one launch each; the old
+    design's launches none.  Limit: 1e-5, or twice the f32 floor where
+    that is larger: the plain sweep's own distance from the same sweep in
+    float64.  On the coarsest levels (578 and 162 rows) the smoothed x is
+    4-6 times smaller than the random x, and that floor passes 1e-5
+    (1.6e-5 and 3.1e-5 on the CPU; reversing the plain sweep's diagonal
+    order alone moves it by up to 3.8e-5)."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.sparse.dia_kernels import (FusedChebSmoother,
+                                                 cheb_sweep_plain)
+    dev = _card()
+    prec, _ = _route_c_hierarchy(dev)
+    rng = np.random.default_rng(8)
+    assert len(prec.levels) >= 3
+    for lv, L in enumerate(prec.levels):
+        sm = L.smoother
+        assert isinstance(sm, FusedChebSmoother) and sm.F == 2
+        x = torch.as_tensor(rng.standard_normal(sm.n), dtype=torch.float32
+                            ).to(dev)
+        b = torch.as_tensor(rng.standard_normal(sm.n), dtype=torch.float32
+                            ).to(dev)
+        for iters in (1, 2):
+            kernels.reset_launches()
+            xs, r = sm.smooth_residual(None, x, b, iters)
+            x2 = sm.smooth(None, x, b, iters)
+            torch.cuda.synchronize()
+            assert dict(kernels.LAUNCHES) == {"cheb_sweep": 2}, lv
+            xp, rp = cheb_sweep_plain(sm.offsA, sm.planesA, sm.offsC,
+                                      sm.planesC, x, b, sm.theta, sm.coefs,
+                                      sm.degree, iters, True)
+            x64, r64 = cheb_sweep_plain(
+                sm.offsA, sm.planesA.double(), sm.offsC,
+                sm.planesC.double(), x.double(), b.double(), sm.theta,
+                sm.coefs, sm.degree, iters, True)
+            lim_x = max(1e-5, 2 * _rel(xp, x64))
+            lim_r = max(1e-5, 2 * _rel(rp, r64))
+            errs = [_rel(got, ref) for got, ref in ((xs, xp), (x2, xp),
+                                                    (r, rp))]
+            assert max(errs[:2]) <= lim_x and errs[2] <= lim_r, (
+                lv, sm.n, iters, errs, lim_x, lim_r)
+
+
+def test_cheb_sweep_kernel_is_deterministic():
+    """No atomics: the same application gives the same bits run to run."""
+    dev = _card()
+    prec, _ = _route_c_hierarchy(dev)
+    sm = prec.levels[0].smoother
+    rng = np.random.default_rng(9)
+    x, b = (torch.as_tensor(rng.standard_normal(sm.n), dtype=torch.float32
+                            ).to(dev) for _ in range(2))
+    outs = [sm.smooth_residual(None, x, b, 2) for _ in range(3)]
+    torch.cuda.synchronize()
+    for xo, ro in outs[1:]:
+        assert torch.equal(xo, outs[0][0]) and torch.equal(ro, outs[0][1])
+
+
+def test_cheb_sweep_kernel_too_large_grid_raises():
+    """A grid that cannot be co-resident is refused by the cooperative
+    launch, and the wrapper raises naming the grid and the occupancy;
+    nothing falls back to the sequenced sweep."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg.cycle_program import SweepProgram
+    from tpuamg_torch.amg.grid_fused import _persistent_occupancy
+    from tpuamg_torch.sparse.dia_kernels import _cheb_persistent
+    dev = _card()
+    offsA, pA, offsC, pC, x, b, theta, coefs = _cheb_inputs(
+        dev, torch.float32, n=4096)
+    prog = SweepProgram(offsA, pA, offsC, pC, 4096, 2, theta, coefs, 3)
+    per_sm, sms = _persistent_occupancy(
+        "cheb", 0, prog.shared_bytes(1, True), torch.cuda.current_device())
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="resident blocks per SM"):
+        _cheb_persistent(prog, x, b, 1, True, _grid=per_sm * sms + 1)
+    assert not any(kernels.LAUNCHES.values())
+    _cheb_persistent(prog, x, b, 1, True)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"cheb_sweep": 1}
+
+
+def test_nl_amli_one_launch_per_smoother_application():
+    """Inside an NL-AMLI MGPreconditioner.matvec every smoother
+    application is one launch of the one-launch K3, none of the
+    sequenced one, and the cycle agrees with the same cycle over the
+    plain sweep (rel 1e-3: the AMLI steps are nonlinear in z, so f32
+    rounding differences of the sweeps grow through the recursion)."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.sparse.dia_kernels import cheb_sweep_plain
+    dev = _card()
+    prec, nd = _route_c_hierarchy(dev)
+    apps = []
+    for L in prec.levels:
+        real = L.smoother._sweep
+
+        def counted(x, b, iters, want_r, real=real):
+            apps.append(want_r)
+            return real(x, b, iters, want_r)
+        L.smoother._sweep = counted
+    b = torch.as_tensor(np.random.default_rng(10).standard_normal(nd),
+                        dtype=torch.float32).to(dev)
+    kernels.reset_launches()
+    z = prec.matvec(b)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    assert len(apps) > len(prec.levels) and any(apps) and not all(apps)
+    assert counts.get("cheb_sweep") == len(apps), counts
+    assert not counts.get("cheb_sweep_sequenced"), counts
+    for L in prec.levels:
+        sm = L.smoother
+
+        def plain(x, b, iters, want_r, sm=sm):
+            return cheb_sweep_plain(sm.offsA, sm.planesA, sm.offsC,
+                                    sm.planesC, x, b, sm.theta, sm.coefs,
+                                    sm.degree, iters, want_r)
+        sm._sweep = plain
+    z_p = prec.matvec(b)
+    assert torch.isfinite(z).all()
+    assert _rel(z, z_p) < 1e-3, _rel(z, z_p)
 
 
 def test_fused_cheb_smoother_kernel_on_grid_level():
@@ -456,7 +647,8 @@ def test_pcg_chunk_kernel_matches_sequenced(cycle, gamma):
 def test_pcg_chunk_kernel_every_op_kind(cycle, pre, storage):
     """n=16, coarse_dof 20, gamma 1: three smoothed levels (n
     3072/1536/768) and a coarse T of 147,456 entries, so every op kind
-    runs; pre-smoothing 1 has cold steps, 0 the ZERO op."""
+    of a cycle runs (RESIDUAL and CHEB_APPLY belong to K3's sweep
+    programs only); pre-smoothing 1 has cold steps, 0 the ZERO op."""
     from tpuamg_torch.amg import cycle_program as cp
     from tpuamg_torch.amg.grid_fused import pcg_chunk, pcg_chunk_plain
     dev = _card()
@@ -465,7 +657,8 @@ def test_pcg_chunk_kernel_every_op_kind(cycle, pre, storage):
     assert len(fp.vc.spec.levels) == 3
     prog = fp.program()
     kinds = {cp.OP_NAMES[op.kind] for op in prog.ops}
-    assert kinds == set(cp.OP_NAMES) - {"ZERO" if pre else ""}
+    assert kinds == set(cp.OP_NAMES) - {"ZERO" if pre else "",
+                                         "RESIDUAL", "CHEB_APPLY"}
     assert any(op.cold for op in prog.ops) == bool(pre)
     start = _chunk_start(fp, bk)
     got = _clone_all(pcg_chunk(fp, *start(), 3))

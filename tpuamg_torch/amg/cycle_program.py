@@ -53,6 +53,22 @@ between block barriers made the K5 chunk slower at every threshold tried
 ``run_program_plain`` executes the same records, buffers included, with
 the plain torch steps of ``grid_fused`` (any device); it equals
 ``vcycle_plain`` bit for bit.
+
+A Chebyshev smoother sweep of the unfused hierarchy (the JAX package's
+``sparse/dia_pallas.py:_cheb_kernel``) is a short program of the same
+records, which kernel K3 (csrc/cheb_persistent.cu) runs through the
+sweep form of the interpreter: iters x degree CHEB_STEP ops and, for
+``smooth_residual``, one
+
+  RESIDUAL(row)  r = b - A x_src, into the row's next-b word
+  CHEB_APPLY(row, first, s, c)
+                 the C-apply half of a step whose RESIDUAL wrote t, for
+                 an F that does not divide 32 (such a step is two ops)
+
+on one level whose table rows name the call's vectors by code
+(``SweepProgram``, ``compile_sweep_ops``).  ``run_sweep_plain`` executes
+them in plain torch; it equals ``sparse.dia_kernels.cheb_sweep_plain``
+bit for bit.
 """
 from __future__ import annotations
 
@@ -63,10 +79,10 @@ import torch
 
 from ..kernels import MAX_DIAGS
 
-ZERO, CHEB_STEP, RESID_RESTRICT, PROLONG, COARSE_GEMV, COARSE_REDUCE = \
-    range(6)
+(ZERO, CHEB_STEP, RESID_RESTRICT, PROLONG, COARSE_GEMV, COARSE_REDUCE,
+ RESIDUAL, CHEB_APPLY) = range(8)
 OP_NAMES = ("ZERO", "CHEB_STEP", "RESID_RESTRICT", "PROLONG", "COARSE_GEMV",
-            "COARSE_REDUCE")
+            "COARSE_REDUCE", "RESIDUAL", "CHEB_APPLY")
 
 # The table layouts; csrc/cycle_program.cuh has the same numbers, and
 # grid_fused._check_layout checks them against the built library.  An op is 4 int32:
@@ -99,7 +115,7 @@ class Op:
 
     def __repr__(self):
         extra = ""
-        if self.kind == CHEB_STEP:
+        if self.kind in (CHEB_STEP, CHEB_APPLY):
             extra = (f", first={self.first}, cold={self.cold}, "
                      f"x{self.src}->x{self.dst}")
         return f"{OP_NAMES[self.kind]}({self.level}{extra})"
@@ -166,6 +182,17 @@ def compile_ops(spec):
     return raw[:-1] + [replace(raw[-1], barrier=False)]
 
 
+def _check_node_blocks(planes, offs, F, what):
+    """Every C entry that crosses a node block of F rows must be zero (it
+    is for the nodal block inverse, sparse.dia_kernels.blockinv_dia)."""
+    i = torch.arange(planes.shape[-1], device=planes.device) % F
+    for d, o in enumerate(offs):
+        out = ((i + o) < 0) | ((i + o) >= F)
+        if bool((planes[d][out] != 0).any()):
+            raise ValueError(f"{what}: C offset {o} crosses node blocks of "
+                             f"{F} rows")
+
+
 def _check_nodal_c(vc):
     """The fused step takes C t inside node blocks of F rows held by one
     warp: F must divide 32, and every C entry that crosses a node block
@@ -175,12 +202,8 @@ def _check_nodal_c(vc):
     if WARP % F:
         raise ValueError(f"CycleProgram: F={F} does not divide {WARP}")
     for lv, S in enumerate(vc.spec.levels):
-        i = torch.arange(S.n, device=vc.device) % F
-        for d, o in enumerate(S.offsC):
-            out = ((i + o) < 0) | ((i + o) >= F)
-            if bool((vc.C_planes[lv][d][out] != 0).any()):
-                raise ValueError(f"CycleProgram: level {lv} C offset {o} "
-                                 f"crosses node blocks of {F} rows")
+        _check_node_blocks(vc.C_planes[lv], S.offsC, F,
+                           f"CycleProgram: level {lv}")
 
 
 def _check_storage(vc):
@@ -314,3 +337,174 @@ def run_program_plain(prog: CycleProgram, vc, b0):
         elif op.kind == COARSE_GEMV:
             steps.coarse(vc.T, vc._bc, vc._xc, vc._partial)
     return xs[0][0]
+
+
+# ---------------------------------------------------------------------------
+# A smoother sweep as a program of the same interpreter (kernel K3)
+# ---------------------------------------------------------------------------
+
+# The call's vectors, which a sweep's level table names by the code
+# -(1 + v) in a pointer word; csrc/cheb_persistent.cu binds them per call
+CALL_X, CALL_B, CALL_X_OUT, CALL_R = range(4)
+_CALLS = {"x": CALL_X, "b": CALL_B, "out": CALL_X_OUT, "r": CALL_R}
+
+# A sweep's level rows: one level seen four ways, which differ only in
+# what their x0, x1 and next-b words name: the caller's x, the returned x
+# ("out") and r, the smoother's second x buffer ("alt") and its t
+ROW_FIRST_ALT, ROW_FIRST_OUT, ROW_STEP, ROW_RESID = range(4)
+SWEEP_ROWS = (("x", "alt", "t"),      # a first step that writes alt
+              ("out", "x", "t"),      # a first step that writes out
+              ("out", "alt", "t"),    # every later step
+              ("out", "x", "r"))      # the residual of out (or of x)
+
+
+def call_code(v):
+    """The level-table word that names the call's vector v."""
+    return -(1 + v)
+
+
+def compile_sweep_ops(theta, coefs, degree, iters, want_r, split=False):
+    """The op list of one smoother application: iters x degree steps
+    (CHEB_STEP, or RESIDUAL into t + CHEB_APPLY when split), then with
+    want_r one RESIDUAL into r.  The first step reads the caller's x; the
+    steps alternate between the returned x and the second buffer so that
+    the last one writes the returned x.  A grid barrier after every op but
+    the last; empty when there is nothing to run."""
+    nsteps = degree * iters
+    ops = []
+    prev = 0
+    for j in range(nsteps):
+        k = j % degree
+        if k == 0:
+            first, s, c = True, 1.0 / theta, 0.0
+        else:
+            (s, c), first = coefs[k - 1], False
+        dst = (nsteps - 1 - j) % 2           # 0: the returned x, 1: alt
+        if j == 0:
+            row, src = (ROW_FIRST_OUT, 1) if dst == 0 else (ROW_FIRST_ALT, 0)
+        else:
+            row, src = ROW_STEP, prev
+        if split:
+            ops.append(Op(RESIDUAL, row, src=src))
+            ops.append(Op(CHEB_APPLY, row, first, s, c, src=src, dst=dst))
+        else:
+            ops.append(Op(CHEB_STEP, row, first, s, c, src=src, dst=dst))
+        prev = dst
+    if want_r:
+        ops.append(Op(RESIDUAL, ROW_RESID, src=0 if nsteps else 1))
+    if not ops:
+        return []
+    return ops[:-1] + [replace(ops[-1], barrier=False)]
+
+
+class SweepProgram:
+    """One Chebyshev smoother's sweeps as op records over a level table of
+    four rows (SWEEP_ROWS), built once per smoother: the rows hold the
+    planes, offsets, n, F and the smoother's own d, second x and t, and
+    name the call's vectors by code.  The op tables, one per (iters,
+    want_r), are built at their first use.  An F that divides 32 runs a
+    step as one CHEB_STEP (t shared by warp shuffles inside a node block);
+    any other F as RESIDUAL + CHEB_APPLY."""
+
+    def __init__(self, offsA, planesA, offsC, planesC, n, F, theta, coefs,
+                 degree):
+        n, F = int(n), int(F)
+        if planesA.dtype != planesC.dtype:
+            raise TypeError(f"SweepProgram: the A and C planes must share "
+                            f"one storage type, not {planesA.dtype} and "
+                            f"{planesC.dtype}")
+        if len(offsA) > MAX_DIAGS or len(offsC) > MAX_DIAGS:
+            raise ValueError(f"SweepProgram: more than {MAX_DIAGS} "
+                             f"diagonals")
+        if len(coefs) != degree - 1:
+            raise ValueError(f"{len(coefs)} coefficient pairs for degree "
+                             f"{degree}")
+        if F < 1 or n % F:
+            raise ValueError(f"SweepProgram: {n} rows are not node blocks "
+                             f"of F={F}")
+        _check_node_blocks(planesC, offsC, F, "SweepProgram")
+        self.offsA, self.planesA = tuple(offsA), planesA
+        self.offsC, self.planesC = tuple(offsC), planesC
+        self.n, self.F = n, F
+        self.theta, self.coefs, self.degree = theta, tuple(coefs), degree
+        self.split = WARP % F != 0
+        dev = planesA.device
+        self.device = dev
+        self.x_alt = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.d = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.t = (torch.zeros(n, dtype=torch.float32, device=dev)
+                  if self.split else None)
+        own = {"alt": self.x_alt, "t": self.t}
+
+        def word(name):
+            if name in _CALLS:
+                return call_code(_CALLS[name])
+            return 0 if own[name] is None else own[name].data_ptr()
+        tab = np.zeros((len(SWEEP_ROWS), LEVEL_WORDS), np.int64)
+        for row, (x0, x1, nb) in zip(tab, SWEEP_ROWS):
+            row[L_A] = planesA.data_ptr()
+            row[L_C] = planesC.data_ptr()
+            row[L_X0], row[L_X1], row[L_NEXT_B] = word(x0), word(x1), word(nb)
+            row[L_D] = self.d.data_ptr()
+            row[L_B] = word("b")
+            row[L_N] = n
+            row[L_F] = F
+            row[L_NDA] = len(offsA)
+            row[L_NDC] = len(offsC)
+            row[L_OFFA:L_OFFA + len(offsA)] = offsA
+            row[L_OFFC:L_OFFC + len(offsC)] = offsC
+        self.level_table = tab
+        self.levels_dev = torch.from_numpy(tab).to(dev)
+        self._compiled = {}
+
+    def _program(self, iters, want_r):
+        """(ops, their int32 (nops, OP_WORDS) table on the device), built
+        at the first use of (iters, want_r)."""
+        key = (int(iters), bool(want_r))
+        if key not in self._compiled:
+            ops = compile_sweep_ops(self.theta, self.coefs, self.degree,
+                                    *key, self.split)
+            tab = np.array([op.record() for op in ops], np.int32).reshape(
+                len(ops), OP_WORDS)
+            self._compiled[key] = (ops, torch.from_numpy(tab).to(
+                self.device))
+        return self._compiled[key]
+
+    def ops(self, iters, want_r):
+        """The op list of one application."""
+        return self._program(iters, want_r)[0]
+
+    def op_table(self, iters, want_r):
+        """The op table of one application on the device."""
+        return self._program(iters, want_r)[1]
+
+    def shared_bytes(self, iters, want_r):
+        """The shared memory the kernel stages the two tables into."""
+        return self.level_table.nbytes + self.op_table(
+            iters, want_r).numel() * 4
+
+
+def run_sweep_plain(prog: SweepProgram, x, b, iters=1, want_r=False):
+    """One application by executing prog's ops, with their buffers, in
+    plain torch (any device): (x_new, b - A x_new or None), x unchanged.
+    Equals sparse.dia_kernels.cheb_sweep_plain bit for bit."""
+    from ..sparse.dia_kernels import dia_spmv_plain
+    ops = prog.ops(iters, want_r)
+    out = torch.empty_like(x) if iters * prog.degree else x.clone()
+    r = torch.empty_like(x) if want_r else None
+    bufs = {"x": x, "out": out, "alt": prog.x_alt, "t": prog.t, "r": r}
+    d = prog.d
+    for op in ops:
+        x0, x1, nb = (bufs[name] for name in SWEEP_ROWS[op.level])
+        xs = (x0, x1)[op.src]
+        if op.kind == RESIDUAL:
+            dia_spmv_plain(prog.offsA, prog.planesA, xs, b, out=nb)
+            continue
+        if op.kind == CHEB_STEP:
+            t = dia_spmv_plain(prog.offsA, prog.planesA, xs, b)
+        else:                                   # CHEB_APPLY: t is nb
+            t = nb
+        ct = dia_spmv_plain(prog.offsC, prog.planesC, t)
+        d.copy_(op.s * ct if op.first else op.s * d + op.c * ct)
+        torch.add(xs, d, out=(x0, x1)[op.dst])
+    return out, r

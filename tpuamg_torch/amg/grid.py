@@ -261,7 +261,7 @@ def setup_grid(A_host: HostCSR, dims, F=1, mask=None,
             lmax = _lmax_blockinv(A, apply_binv, mask_np)
         interval = (1.1 * lmax, 1.1 * lmax / cheb_ratio)
         if kern:
-            # the whole degree-k sweep is one K3 call
+            # the whole degree-k sweep is one K3 launch
             coffs, cdata = blockinv_dia(blockinv, mask_np)
             Adev = KernelDIA.from_host(A, dtype=sdtype, device=dev)
             C = DIA(coffs, _on(cdata, sdtype, dev), A.shape)

@@ -50,8 +50,8 @@ from .. import kernels
 from ..config import AMGParameters
 from ..kernels import LANES
 from ..sparse import HostCSR
-from ..sparse.dia_kernels import (KernelDIA, _cheb_coefs, blockinv_dia,
-                                  dia_spmv, dia_spmv_plain)
+from ..sparse.dia_kernels import (_CHEB_ARGS, KernelDIA, _cheb_coefs,
+                                  blockinv_dia, dia_spmv, dia_spmv_plain)
 from ..sparse.dia import DIA
 from .cycle_program import CycleProgram, run_program_plain
 from .grid import _grid_coarse, _lmax_blockinv, _node_blocks
@@ -875,12 +875,13 @@ _PERSISTENT_ARGS = ("levels", "nlevels", "ops", "nops", "Q_planes", "x", "r",
 # the host argument vector of tpuamg_cycle_persistent, in its order
 _CYCLE_ARGS = ("levels", "nlevels", "ops", "nops", "b", "T", "bc", "xc",
                "partial", "rows_c", "nc", "nsplit")
-_KERNEL_ARGS = {"pcg": _PERSISTENT_ARGS, "cycle": _CYCLE_ARGS}
+_KERNEL_ARGS = {"pcg": _PERSISTENT_ARGS, "cycle": _CYCLE_ARGS,
+                "cheb": _CHEB_ARGS}
 
 
 def _check_layout(kernel):
     """The library's table layouts are amg/cycle_program.py's; kernel is
-    "pcg" (K5) or "cycle" (the one-launch cycle)."""
+    "pcg" (K5), "cycle" (the one-launch cycle) or "cheb" (K3's sweep)."""
     from . import cycle_program as cp
     lay = (ctypes.c_int * 4)()
     getattr(kernels.lib(), f"tpuamg_{kernel}_persistent_layout")(lay)
@@ -899,8 +900,9 @@ BLOCKS_PER_SM = 1
 
 @functools.lru_cache(maxsize=None)
 def _persistent_occupancy(kernel, planes_bf16, smem, device_index):
-    """(resident blocks per SM, SMs) of a persistent kernel ("pcg" or
-    "cycle"), once per plane type, staged table size and device."""
+    """(resident blocks per SM, SMs) of a persistent kernel ("pcg",
+    "cycle" or "cheb"), once per plane type, staged table size and
+    device."""
     _check_layout(kernel)
     out = (ctypes.c_int * 2)()
     with torch.cuda.device(device_index):
@@ -911,23 +913,25 @@ def _persistent_occupancy(kernel, planes_bf16, smem, device_index):
     return int(out[0]), int(out[1])
 
 
-def _grid_of(kernel, vc, smem):
-    dev = vc.device.index if vc.device.index is not None \
+def _grid_of(kernel, planes, smem):
+    """(grid, resident blocks per SM, SMs) of a persistent kernel reading
+    planes of `planes`' type on its device, with smem bytes of tables:
+    SMs x min(occupancy, BLOCKS_PER_SM)."""
+    dev = planes.device.index if planes.device.index is not None \
         else torch.cuda.current_device()
     per_sm, sms = _persistent_occupancy(
-        kernel, kernels.storage_flag(vc.A_planes[0]), smem, dev)
+        kernel, kernels.storage_flag(planes), smem, dev)
     return sms * min(per_sm, BLOCKS_PER_SM), per_sm, sms
 
 
 def persistent_grid(fp: "FusedPCG"):
-    """(grid, resident blocks per SM, SMs) of fp's persistent launch: SMs
-    x min(occupancy, BLOCKS_PER_SM)."""
-    return _grid_of("pcg", fp.vc, fp.program().shared_bytes())
+    """(grid, resident blocks per SM, SMs) of fp's persistent launch."""
+    return _grid_of("pcg", fp.vc.A_planes[0], fp.program().shared_bytes())
 
 
 def cycle_grid(vc: "FusedVCycle"):
     """(grid, resident blocks per SM, SMs) of vc's one-launch cycle."""
-    return _grid_of("cycle", vc, vc.program().shared_bytes())
+    return _grid_of("cycle", vc.A_planes[0], vc.program().shared_bytes())
 
 
 def _cycle_persistent(vc: "FusedVCycle", b, _grid=None, _ops=None):
@@ -947,7 +951,7 @@ def _cycle_persistent(vc: "FusedVCycle", b, _grid=None, _ops=None):
     kernels.require(ops, "ops", dtype=torch.int32, device=vc.device)
     spec = vc.spec
     smem = prog.level_table.nbytes + ops.numel() * ops.element_size()
-    grid, per_sm, sms = _grid_of("cycle", vc, smem)
+    grid, per_sm, sms = _grid_of("cycle", vc.A_planes[0], smem)
     grid = grid if _grid is None else int(_grid)
     vals = dict(
         levels=prog.levels_dev.data_ptr(), nlevels=len(spec.levels),

@@ -1,15 +1,22 @@
-// K3: a whole Chebyshev smoother sweep on one level of the unfused grid
-// hierarchy.
+// K3's earlier design: a whole Chebyshev smoother sweep on one level of
+// the unfused grid hierarchy as 2k + 1 launches from one C call.  K3 is
+// now csrc/cheb_persistent.cu, one cooperative launch per application;
+// this file stays only so that the card can time the two designs side by
+// side (sparse/dia_kernels.py::cheb_sweep_sequenced, its own launch count;
+// no route calls it).
 //
 // Replaces tpuamg/sparse/dia_pallas.py:_cheb_kernel (via _cheb_call and
 // FusedChebSmoother.smooth / .smooth_residual), which runs the sweep as ONE
 // program on one TPU core: x, b, t and d stay in VMEM while the A and C
 // planes stream block by block.  Here each step's two passes are separate
-// grid-wide launches, because the C-apply reads t at neighbouring rows
-// (offsets up to 2F-2), so it must wait for the whole t-pass: one launch
-// that did both would need a grid-wide barrier, which deadlocks unless
-// every block is resident.  The host-side loop lives in C (one ctypes call
-// per smoother application), so Python pays one call for 2k+1 launches.
+// grid-wide launches: the C-apply of row i reads t at C's offsets, and a
+// launch has no barrier between blocks.  For the C the port builds (the
+// nodal block inverse, offsets -(F-1)..F-1 and zero across node blocks)
+// those reads stay inside row i's node block, which is what lets the
+// persistent kernels run a step as one pass; this design takes any C and
+// either storage type for each of A and C.  The host-side loop lives in
+// C (one ctypes call per smoother application), so Python pays one call
+// for 2k+1 launches (and the wrapper a copy of x).
 //
 // Per step, on the interleaved flat layout of length n (no padding;
 // out-of-range reads give 0, as dia_row does):

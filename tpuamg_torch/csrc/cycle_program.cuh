@@ -1,9 +1,13 @@
 // The device interpreter of the cycle op program (amg/cycle_program.py),
-// shared by the two persistent cooperative kernels that run it:
+// shared by the three persistent cooperative kernels that run it:
 //  - K5, csrc/pcg_persistent.cu: a chunk of PCG iterations, one whole
 //    cycle inside each, level 0's right-hand side the PCG residual r;
 //  - K2, csrc/cycle_persistent.cu: one whole cycle per launch, level 0's
-//    right-hand side the caller's pre-masked b.
+//    right-hand side the caller's pre-masked b;
+//  - K3, csrc/cheb_persistent.cu: one Chebyshev smoother sweep per
+//    launch on one level of the unfused hierarchy, through the sweep
+//    form of the interpreter (run_op<P, true>): any level length, and
+//    two ops that only a sweep program holds (RESIDUAL, CHEB_APPLY).
 //
 // The program is an int32 op table and an int64 level table (pointers,
 // sizes, offsets), copied into each block's shared memory when the kernel
@@ -52,7 +56,8 @@ constexpr int kThreads = 512;        // per block, one block per SM
 
 // amg/cycle_program.py: op records and level words
 enum OpKind {
-  kZero = 0, kChebStep, kResidRestrict, kProlong, kCoarseGemv, kCoarseReduce
+  kZero = 0, kChebStep, kResidRestrict, kProlong, kCoarseGemv, kCoarseReduce,
+  kResidual, kChebApply
 };
 // an op is kind | level << 8 | flags << 16, s bits, c bits, 0
 constexpr int kOpWords = 4;
@@ -141,8 +146,11 @@ __device__ __forceinline__ float dia_row(const P* planes, const float* x,
 // One op of the cycle program over items start, start + stride, ... (grid
 // stride: a warp holds 32 consecutive items, and n is a multiple of 128,
 // so a warp enters and leaves every loop together).  L is the op's level
-// row in shared memory.
-template <typename P>
+// row in shared memory.  Sweep: a smoother sweep's program (K3), whose
+// level length is any multiple of F: CHEB_STEP runs a warp while its
+// first row is below n, its lanes past n idle in the shuffles, and the
+// RESIDUAL and CHEB_APPLY ops exist.  K5 and K2 compile Sweep = false.
+template <typename P, bool Sweep = false>
 __device__ __forceinline__ void run_op(const Cycle& a, int w0,
                                        const int* op, const long long* L,
                                        long long start, long long stride) {
@@ -231,28 +239,31 @@ __device__ __forceinline__ void run_op(const Cycle& a, int w0,
       const float s = __int_as_float(op[1]);
       const float c = __int_as_float(op[2]);
       const int lane = threadIdx.x & 31;
-      for (long long i = start; i < n; i += stride) {
+      // a warp's first row is i - lane (Sweep: n need not be a multiple
+      // of 32, and every lane of a warp takes part in its shuffles)
+      for (long long i = start; (Sweep ? i - lane : i) < n; i += stride) {
+        const bool in = !Sweep || i < n;
         // every load that does not wait on t goes out first: the small
         // levels are latency, not bandwidth
         const int f = static_cast<int>(i % F);
-        const float bi = b[i];
-        const float di = first ? 0.f : d[i];
-        const float xi = cold ? 0.f : xs[i];
+        const float bi = in ? b[i] : 0.f;
+        const float di = (first || !in) ? 0.f : d[i];
+        const float xi = (cold || !in) ? 0.f : xs[i];
         float cv[kCHoist];
 #pragma unroll
         for (int k = 0; k < kCHoist; ++k) {
           const int o = k < ndC ? static_cast<int>(L[kOffC + k]) : F;
-          cv[k] = (f + o >= 0 && f + o < F)
+          cv[k] = (in && f + o >= 0 && f + o < F)
                       ? ro(C, static_cast<long long>(k) * n + i) : 0.f;
         }
-        const float t =
-            cold ? bi : bi - dia_row(A, xs, n, i, L + kOffA, ndA);
+        const float t = !in ? 0.f
+                        : cold ? bi : bi - dia_row(A, xs, n, i, L + kOffA, ndA);
         float ct = 0.f;
         for (int dd = 0; dd < ndC; ++dd) {
           const int o = static_cast<int>(L[kOffC + dd]);
           const float tj = __shfl_sync(0xffffffffu, t, (lane + o) & 31);
           // C is zero across node blocks, whose rows no other warp holds
-          if (f + o >= 0 && f + o < F) {
+          if (in && f + o >= 0 && f + o < F) {
             float cd = 0.f;
 #pragma unroll
             for (int k = 0; k < kCHoist; ++k)
@@ -261,9 +272,45 @@ __device__ __forceinline__ void run_op(const Cycle& a, int w0,
             ct = fmaf(cd, tj, ct);
           }
         }
-        const float dn = first ? s * ct : s * di + c * ct;
-        d[i] = dn;
-        xd[i] = xi + dn;
+        if (in) {
+          const float dn = first ? s * ct : s * di + c * ct;
+          d[i] = dn;
+          xd[i] = xi + dn;
+        }
+      }
+      break;
+    }
+    case kResidual: {
+      // r = b - A x_src, written where the level's next-b word points (a
+      // sweep binds it to the returned r, or to its own t)
+      if constexpr (Sweep) {
+        const P* A = ptr<const P>(L[kA]);
+        const int ndA = static_cast<int>(L[kNdA]);
+        float* r = ptr<float>(L[kNextB]);
+        for (long long i = start; i < n; i += stride)
+          r[i] = b[i] - dia_row(A, xs, n, i, L + kOffA, ndA);
+      }
+      break;
+    }
+    case kChebApply: {
+      // the C-apply of a step split in two ops (an F that does not divide
+      // 32): t from the RESIDUAL before it, read at C's offsets;
+      // d = s C t (first) or s d + c C t; x_dst = x_src + d
+      if constexpr (Sweep) {
+        const P* C = ptr<const P>(L[kC]);
+        const int ndC = static_cast<int>(L[kNdC]);
+        const float* t = ptr<const float>(L[kNextB]);
+        float* d = ptr<float>(L[kD]);
+        float* xd = ptr<float>(L[(flags & fDst) ? kX1 : kX0]);
+        const bool first = flags & fFirst;
+        const float s = __int_as_float(op[1]);
+        const float c = __int_as_float(op[2]);
+        for (long long i = start; i < n; i += stride) {
+          const float ct = dia_row(C, t, n, i, L + kOffC, ndC);
+          const float dn = first ? s * ct : s * d[i] + c * ct;
+          d[i] = dn;
+          xd[i] = xs[i] + dn;
+        }
       }
       break;
     }
@@ -349,7 +396,7 @@ __device__ __forceinline__ void run_op(const Cycle& a, int w0,
 
 // The whole cycle: every op of the staged table in order, each followed
 // by a grid barrier unless its record says otherwise.
-template <typename P>
+template <typename P, bool Sweep = false>
 __device__ __forceinline__ void run_cycle(const Cycle& a, const int* ops,
                                           const long long* levels,
                                           cg::grid_group& grid,
@@ -358,7 +405,7 @@ __device__ __forceinline__ void run_cycle(const Cycle& a, const int* ops,
     const int* op = ops + k * kOpWords;
     const int w0 = op[0];
     const int lv = (w0 >> 8) & 0xff;
-    run_op<P>(a, w0, op,
+    run_op<P, Sweep>(a, w0, op,
               levels + static_cast<long long>(lv < a.nlevels ? lv : 0) *
                            kLevelWords,
               gtid, gstride);

@@ -70,6 +70,9 @@ _SIGNATURES = {
     "tpuamg_cycle_persistent": (_P, _I, _I, _I, _I, _P),
     "tpuamg_cycle_persistent_occupancy": (_I, _I, _P),
     "tpuamg_cycle_persistent_layout": (_P,),
+    "tpuamg_cheb_persistent": (_P, _I, _I, _I, _I, _P),
+    "tpuamg_cheb_persistent_occupancy": (_I, _I, _P),
+    "tpuamg_cheb_persistent_layout": (_P,),
 }
 
 _lib = None

@@ -11,9 +11,13 @@ shifted slices); on anything else they raise.
 ``FusedChebSmoother`` takes the place of the JAX package's smoother of
 the same name: a whole Chebyshev sweep (``iters`` x degree steps of
 t = b - A x, d = C t / theta or a d + c C t, x += d, and optionally the
-final residual) is one call of ``cheb_sweep``, which launches kernel K3
-(csrc/cheb.cu) on a CUDA tensor and runs the plain version
-``cheb_sweep_plain`` on a CPU tensor.
+final residual) is, on a CUDA tensor, ONE cooperative launch of kernel
+K3 (csrc/cheb_persistent.cu), which runs the smoother's sweep program
+(``amg.cycle_program.SweepProgram``) through the interpreter of the
+persistent cycle kernels; on a CPU tensor it is the plain version
+``cheb_sweep_plain``.  The earlier design of K3 (csrc/cheb.cu, two
+launches per step) stays as ``cheb_sweep_sequenced``, for comparison on
+the card only.
 
 ``dia_spmv_pallas`` is the counterpart of the JAX package's
 ``sparse/pallas_kernels.py`` (kernel ``_dia_kernel``, which nothing
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..amg.cycle_program import SweepProgram
 from .host import HostCSR
 
 
@@ -255,27 +260,24 @@ def cheb_sweep_plain(offsA, planesA, offsC, planesC, x, b, theta, coefs,
 
 
 class _ChebConsts:
-    """What a K3 launch takes that does not change between applications:
-    the plane pointers and flags, the offsets and coefficients as ctypes
-    arrays, 1/theta, and the (t, d) scratch."""
+    """What a launch of the sequenced K3 (csrc/cheb.cu) takes that does
+    not change between applications: the plane pointers and flags, the
+    offsets and coefficients as ctypes arrays, 1/theta, and the (t, d)
+    scratch."""
 
     def __init__(self, offsA, planesA, offsC, planesC, n, theta, coefs,
-                 degree, work=None):
+                 degree):
         if len(coefs) != degree - 1:
             raise ValueError(f"{len(coefs)} coefficient pairs for degree "
                              f"{degree}")
         kernels.require(planesA, "A planes", numel=len(offsA) * n)
         kernels.require(planesC, "C planes", numel=len(offsC) * n,
                         device=planesA.device)
-        t, d = work if work is not None else (
-            torch.empty(n, dtype=torch.float32, device=planesA.device),
-            torch.empty(n, dtype=torch.float32, device=planesA.device))
-        for name, w in (("t", t), ("d", d)):
-            kernels.require(w, name, dtype=torch.float32, numel=n,
-                            device=planesA.device)
         self.device = planesA.device
         self.n = int(n)
-        self.work = (t, d)
+        self.work = tuple(torch.empty(n, dtype=torch.float32,
+                                      device=planesA.device)
+                          for _ in range(2))
         self.head = (planesA.data_ptr(), kernels.storage_flag(planesA),
                      len(offsA), kernels.int_array(tuple(offsA)),
                      planesC.data_ptr(), kernels.storage_flag(planesC),
@@ -286,7 +288,7 @@ class _ChebConsts:
         self.coefs = (ctypes.c_float * max(len(flat), 1))(*flat)
 
     def launch(self, x, b, iters, want_r):
-        """K3 on x and b: (x_new, r or None), x left unchanged."""
+        """The sequenced K3 on x and b: (x_new, r or None), x unchanged."""
         kernels.require(x, "x", dtype=torch.float32, numel=self.n,
                         device=self.device)
         kernels.require(b, "b", dtype=torch.float32, numel=self.n,
@@ -299,35 +301,98 @@ class _ChebConsts:
             d.data_ptr(), None if r is None else r.data_ptr(), self.n,
             self.degree, int(iters), self.inv_theta, self.coefs,
             kernels.stream_ptr())
-        kernels.check(rc, "cheb_sweep")
-        kernels.LAUNCHES["cheb_sweep"] += 1
+        kernels.check(rc, "cheb_sweep_sequenced")
+        kernels.LAUNCHES["cheb_sweep_sequenced"] += 1
         return out, r
 
 
+# the host argument vector of tpuamg_cheb_persistent, in its order
+_CHEB_ARGS = ("levels", "nlevels", "ops", "nops", "x", "b", "x_out", "r")
+
+
+def _cheb_persistent(prog: SweepProgram, x, b, iters, want_r, _grid=None):
+    """One application as one cooperative launch of K3
+    (csrc/cheb_persistent.cu) running prog's sweep program: (x_new, r or
+    None), both allocated here (torch.empty, no launch), x unchanged.
+    Nothing runs when the program is empty (no step and no r): x_new is
+    then a copy of x, as the plain version gives.  _grid overrides the
+    grid (a card test asks for one too large to be co-resident)."""
+    from ..amg import grid_fused
+    kernels.require(x, "x", dtype=torch.float32, numel=prog.n,
+                    device=prog.device)
+    kernels.require(b, "b", dtype=torch.float32, numel=prog.n,
+                    device=prog.device)
+    out = torch.empty_like(x) if iters * prog.degree else x.clone()
+    r = torch.empty_like(x) if want_r else None
+    table = prog.op_table(iters, want_r)
+    if not len(table):
+        return out, r
+    smem = prog.shared_bytes(iters, want_r)
+    grid, per_sm, sms = grid_fused._grid_of("cheb", prog.planesA, smem)
+    grid = grid if _grid is None else int(_grid)
+    vals = dict(levels=prog.levels_dev.data_ptr(),
+                nlevels=prog.level_table.shape[0], ops=table.data_ptr(),
+                nops=len(table), x=x.data_ptr(), b=b.data_ptr(),
+                x_out=out.data_ptr(), r=0 if r is None else r.data_ptr())
+    args = (ctypes.c_longlong * len(_CHEB_ARGS))(
+        *(vals[k] for k in _CHEB_ARGS))
+    rc = kernels.lib().tpuamg_cheb_persistent(
+        args, len(_CHEB_ARGS), kernels.storage_flag(prog.planesA), grid,
+        smem, kernels.stream_ptr())
+    if rc != 0:
+        raise RuntimeError(
+            f"CUDA kernel cheb_persistent failed: cudaError {rc} on a grid "
+            f"of {grid} blocks x 512 threads ({sms} SMs x {per_sm} "
+            f"resident blocks per SM)")
+    kernels.LAUNCHES["cheb_sweep"] += 1
+    return out, r
+
+
+def _node_size(offsC):
+    """The node block size the C offsets -(F-1)..F-1 imply."""
+    return max((abs(int(o)) for o in offsC), default=0) + 1
+
+
 def cheb_sweep(offsA, planesA, offsC, planesC, x, b, theta, coefs, degree,
-               iters=1, want_r=False, work=None):
+               iters=1, want_r=False):
     """One smoother application: (x_new, r or None), x left unchanged.
 
-    CPU tensors: the plain version.  CUDA tensors: kernel K3, one C call
-    that launches the t-pass and the C-apply of every step (and the final
-    residual pass) in turn on the current stream; x and b float32, the
-    planes float32 or bfloat16.  work: optional (t, d) float32 scratch of
-    x's length."""
+    CPU tensors: the plain version.  CUDA tensors: kernel K3, one
+    cooperative launch of the sweep program (a program built for this
+    call; FusedChebSmoother builds its own once).  x and b float32, the
+    planes float32 or bfloat16, both of one type; C the nodal block
+    inverse over node blocks of the size its offsets imply."""
     if x.device.type == "cpu":
         return cheb_sweep_plain(offsA, planesA, offsC, planesC, x, b, theta,
                                 coefs, degree, iters, want_r)
+    prog = SweepProgram(offsA, planesA, offsC, planesC, x.shape[0],
+                        _node_size(offsC), theta, coefs, degree)
+    return _cheb_persistent(prog, x, b, iters, want_r)
+
+
+def cheb_sweep_sequenced(offsA, planesA, offsC, planesC, x, b, theta, coefs,
+                         degree, iters=1, want_r=False):
+    """The earlier design of K3, kept to time it beside the one-launch
+    kernel on the card: csrc/cheb.cu, 2 launches per step (the t-pass,
+    then the C-apply) and one for r, from one C call, after a copy of x.
+    CUDA tensors only; no route calls it.  Same contract as cheb_sweep
+    (any C, and A and C planes of either type)."""
     return _ChebConsts(offsA, planesA, offsC, planesC, x.shape[0], theta,
-                       coefs, degree, work).launch(x, b, iters, want_r)
+                       coefs, degree).launch(x, b, iters, want_r)
 
 
 class FusedChebSmoother:
-    """Chebyshev smoother whose whole sweep is one ``cheb_sweep`` call.
+    """Chebyshev smoother whose whole sweep is one kernel launch.
 
     Holds its own A and C (= masked B^{-1}) planes, (nd, n) in float32 or
-    bfloat16, on the unfused hierarchy's interleaved layout (no padding).
+    bfloat16, on the unfused hierarchy's interleaved layout (no padding),
+    C over node blocks of F rows, the size its offsets -(F-1)..F-1
+    imply.
     Drop-in for BlockChebyshevSmoother on the grid path: the ``A``
     argument of smooth() is ignored, and reverse is a no-op (Chebyshev is
-    self-adjoint in the B inner product)."""
+    self-adjoint in the B inner product).  On CPU tensors it runs
+    ``cheb_sweep_plain``; on CUDA tensors kernel K3 on its sweep program
+    (``program()``, built at the first launch)."""
 
     def __init__(self, offsA, planesA, offsC, planesC, n, lmax, lmin,
                  degree=3, kind=1):
@@ -336,13 +401,14 @@ class FusedChebSmoother:
         self.offsC = tuple(int(o) for o in offsC)
         self.planesC = planesC
         self.n = int(n)
+        self.F = _node_size(self.offsC)
         self.lmax = lmax
         self.lmin = lmin
         self.degree = int(degree)
         self.kind = int(kind)
         self.theta, self.coefs = _cheb_coefs(lmax, lmin, self.degree,
                                              self.kind)
-        self._consts = None     # K3's launch constants, at the first launch
+        self._program = None
 
     @classmethod
     def build(cls, A_dia, C_dia, lmax, lmin, degree=3, kind=1):
@@ -353,17 +419,22 @@ class FusedChebSmoother:
                    C_dia.offsets, C_dia.data if pc is None else pc,
                    A_dia.shape[0], lmax, lmin, degree, kind)
 
+    def program(self) -> SweepProgram:
+        """K3's sweep program: the level table and the smoother's own d,
+        second x and t, built once."""
+        if self._program is None:
+            self._program = SweepProgram(
+                self.offsA, self.planesA, self.offsC, self.planesC, self.n,
+                self.F, self.theta, self.coefs, self.degree)
+        return self._program
+
     def _sweep(self, x, b, iters, want_r):
         if x.device.type == "cpu":
             return cheb_sweep_plain(self.offsA, self.planesA, self.offsC,
                                     self.planesC, x, b, self.theta,
                                     self.coefs, self.degree, int(iters),
                                     want_r)
-        if self._consts is None:
-            self._consts = _ChebConsts(self.offsA, self.planesA, self.offsC,
-                                       self.planesC, self.n, self.theta,
-                                       self.coefs, self.degree)
-        return self._consts.launch(x, b, iters, want_r)
+        return _cheb_persistent(self.program(), x, b, int(iters), want_r)
 
     def smooth(self, A, x, b, iters=1, reverse=False):
         del A, reverse
