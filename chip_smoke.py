@@ -87,6 +87,24 @@ interpreter):
      iteration the profile shows;
  12. K6's device time per step (profiler) beside its event time; its
      shards' sweep against the new K3.
+The seventh slice, the algebraic metric-AMG path (no hand-written kernel:
+its device work is torch ops on ELL matrices, as the JAX package's is XLA
+ops), adds:
+  3, 12. K1 on the outer operator and K6's level-0 step by device time,
+     warm and after a 128 MB write (cold L2);
+ 16. solve_system(A, b, "metric_mono", ...) at n=512 (phase 5's system)
+     with the driver's preset metric_schwarz, float64, tol 1e-8: within
+     1 iteration of the JAX table's 11, cond <= 3, the true residual;
+     set-up seconds, ms per PCG iteration, device operations per cycle
+     (profiler), device busy per iteration and the idle share; the
+     native amgkit library loaded;
+ 17. the preconditioner, the ELL matvec and one GS and one Schwarz sweep
+     on the card against the same hierarchy on the CPU (1e-12, f64);
+ 18. the other -precond modes (hazmath, hazmath_Schwarz, hazmath_HEM,
+     metric, metric_hazmath, diag) and metric_mono with MINRES and GMRES
+     at n=64, each converged, beside the committed tables;
+ 19. the driver with its default -backend algebraic: -precond metric_mono
+     -nrefs 4 -gamma 1e8, iterations 6/7/8/8 +- 1, H1 rates in [0.9, 1.1].
 Then a JSON line {"kernels": [...]}, the nvidia-smi line, and, last, the
 result line {"ok": true, "device": {...}}.  Any failed check raises, and
 the script exits nonzero; a watchdog ends it, with a traceback and a
@@ -122,6 +140,18 @@ SEQUENCED = K2_STEPS + ("dia_residual",)
 K5_STEPS = ("pcg_rz", "pcg_pq", "pcg_xr", "pcg_finish")
 N2 = 256            # the second slice's full width: route (a)'s largest n
 ROUTE_A_CHUNK = 32  # pcg_fused's chunk, which route (a) keeps
+# The committed CPU f64 tables of the JAX package's driver (metric_mono,
+# kappa 2/3, tol 1e-8): PCG iterations by dofs at gamma 1e6 and, for
+# ncells 32..256, at gamma 1e8
+# (docs/sample_results/bidomain_2d/iters_precondmetric_mono_*).
+ALG_ITERS_1E6 = {2178: 6, 8450: 8, 33282: 10, 132098: 10, 526338: 11}
+ALG_ITERS_1E8 = (6, 7, 8, 8)
+# the same tables at 8,450 dofs (n=64), gamma 1e6, for the other modes
+# with a table; metric and metric_hazmath take metric_mono's preset in the
+# driver, so its count
+ALG_ITERS_N64 = {"hazmath": 39, "hazmath_Schwarz": 12, "hazmath_HEM": 8,
+                 "metric": 8, "metric_hazmath": 8, "metric_mono": 8}
+N_SMALL = 64        # the seventh slice's small modes
 # The TPU record of refine at n=512, gamma 1e6 (V-cycle, coarse_dof 4096,
 # f32, refine 4, inner tol 2e-5): Krylov iterations per refinement pass,
 # from docs/sample_results/bidomain_2d_tpu_gamma_n512.txt (the 1e6 row),
@@ -254,10 +284,12 @@ def scatter(b, slots, nflat, dev):
     return bk.to(dev)
 
 
-def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4):
+def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4,
+        n_small=N_SMALL, alg_nrefs=4):
     """All phases; returns the kernels list.  device='cpu' rehearses the
     script's own logic with the plain versions (no kernels, no counts);
-    n2 and nrefs shrink the second slice's phases for such a rehearsal."""
+    n2, nrefs, n_small and alg_nrefs shrink the later slices' phases for
+    such a rehearsal."""
     from tpuamg_torch import kernels
     from tpuamg_torch.sparse.dia_kernels import (KernelDIA, dia_spmv,
                                                  dia_spmv_plain)
@@ -348,6 +380,13 @@ def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4):
                 return lambda: M @ x
             return lambda: torch.addmv(rhs, M, x, beta=1.0, alpha=-1.0)
         lib = library_ms(make_library_call, reps, dev)
+        if on_card and rhs is None:
+            # the kernel's own device time, warm and after a 128 MB write
+            wc = warm_cold_us(lambda: dia_spmv(offs, planes, x, rhs, out),
+                              "dia_sweep_kernel", dev)
+            say(f"[3 K1 {label}] device time per launch: warm "
+                f"{fmt_us(wc[False])}, cold (after a 128 MB write) "
+                f"{fmt_us(wc[True])} | bound {bms * 1e3:.2f} us")
         say(f"[3 K1 {label}] planes {tuple(planes.shape)} {planes.dtype} "
             f"max_abs_err {abs_err:.3e} rel {rel:.3e} | kernel {ms:.5f} ms "
             f"plain {plain_ms:.5f} ms csr-library {lib} ms | bound "
@@ -552,6 +591,10 @@ def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4):
     # ---- 12-15: the third slice ----------------------------------------
     slice3(dev, kern, A, b, n)
     say(f"[15 done] total {time.perf_counter() - t_all:.1f} s")
+
+    # ---- 16-19: the seventh slice, the algebraic metric-AMG path -------
+    algebraic_slice(dev, A, b, n, n_small, alg_nrefs)
+    say(f"[19 done] total {time.perf_counter() - t_all:.1f} s")
     return kern
 
 
@@ -1190,14 +1233,12 @@ def phase12(dev, kern, prob):
                      dev)
     # the kernel's own device time per step, apart from the host's cost
     # of each launch (the event time above is over back-to-back launches)
-    dev_us = "not measured"
+    dev_us, cold_us = "not measured", "not measured"
     if on_card:
-        prof = profile_busy(lambda: [cheb_step(
+        wc = warm_cold_us(lambda: cheb_step(
             oA, pA, oC, pC, xh, h, bb, dd, False, a1, c1, F, x_out=xo,
-            d_out=dd) for _ in range(20)], dev)
-        if prof is not None:
-            dev_us = sum(u for kk, _, u in prof[0]
-                         if "cheb_step_kernel" in kk) / 20
+            d_out=dd), "cheb_step_kernel", dev, reps=20)
+        dev_us, cold_us = wc[False], wc[True]
     s_b = pA.element_size()
     nbytes = (len(oA) + len(oC)) * n * s_b + 4 * (n + 2 * h) + 16 * n
     flops = 2 * (len(oA) + len(oC)) * n + 4 * n
@@ -1206,12 +1247,14 @@ def phase12(dev, kern, prob):
         f"{len(oA)} C {len(oC)} {pA.dtype}: {nsh} shards, steps vs plain "
         f"max rel err {max(errs):.3e} max_abs_err {abs_err:.3e}; vs K3 "
         f"{vs_k3} | step {ms:.5f} ms, device time "
-        f"{dev_us if isinstance(dev_us, str) else '%.2f us' % dev_us} per "
-        f"step, plain {plain_ms:.5f} ms | bound {bms:.5f} ms ({by}, "
+        f"{fmt_us(dev_us)} per step warm, {fmt_us(cold_us)} cold (after a "
+        f"128 MB write), plain {plain_ms:.5f} ms | bound "
+        f"{bms:.5f} ms ({by}, "
         f"{nbytes} B) -> {bms / ms:.3f} of bound by events"
         + ("" if isinstance(dev_us, str) else
-           f", {bms * 1e3 / dev_us:.3f} by device time") + " | "
-        f"smooth_residual (degree {k}: {k} exchanges + K6, 1 exchange + "
+           f", {bms * 1e3 / dev_us:.3f} by device time") + ("" if isinstance(
+               cold_us, str) else f" ({bms * 1e3 / cold_us:.3f} cold)")
+        + f" | smooth_residual (degree {k}: {k} exchanges + K6, 1 exchange + "
         f"K1 padded residual) {ms_sr:.5f} ms | library: none")
     row = dict(name="cheb_step", route="cuda",
                source="tpuamg_torch/csrc/cheb_step.cu",
@@ -1415,6 +1458,207 @@ def phase15(dev, mesh):
           and info["nflat"] == DIST_RECORD["nflat"]
           and info["pallas_levels"] == info["sharded_levels"]
           == DIST_RECORD["pallas_levels"], f"n={n} vs the JAX record")
+
+
+def algebraic_slice(dev, A, b, n, n_small, alg_nrefs):
+    """Phases 16-19 (module docstring)."""
+    prec = phase16(dev, A, b, n)
+    phase17(dev, prec)
+    del prec
+    phase18(dev, n_small)
+    run_algebraic_driver(dev, alg_nrefs)
+
+
+def phase16(dev, A, b, n):
+    """solve_system(A, b, "metric_mono", ...) at full width with the
+    driver's preset, float64; returns the preconditioner it built."""
+    from tpuamg_torch import native
+    from tpuamg_torch.config import PRESETS
+    from tpuamg_torch.krylov import pcg
+    from tpuamg_torch.problems import solve as tsolve
+    from tpuamg_torch.sparse.device import ELL
+    t0 = time.perf_counter()
+    check(native.get_lib() is not None, "the native amgkit library is not "
+          "loaded")
+    say(f"[16 native] amgkit {native.BUILD_INFO} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    sizes = (A.shape[0] // 2,) * 2
+    idofs = np.arange(sizes[0], A.shape[0])
+    # solve_system's own call of make_preconditioner, recorded, so that
+    # the phases below run the hierarchy the solve ran
+    built, make = [], tsolve.make_preconditioner
+
+    def recording(*args, **kw):
+        built.append(make(*args, **kw))
+        return built[-1]
+    tsolve.make_preconditioner = recording
+    try:
+        rep = tsolve.solve_system(A, b, "metric_mono", sizes, idofs=idofs,
+                                  params=PRESETS["metric_schwarz"],
+                                  tol=1e-8, maxiter=500,
+                                  dtype=torch.float64, device=dev)
+    finally:
+        tsolve.make_preconditioner = make
+    prec = built[0].__self__
+    true_rel = float(np.linalg.norm(b - A.matvec(rep.x)) / np.linalg.norm(b))
+    ref = ALG_ITERS_1E6.get(A.shape[0])
+    # pcg runs whole chunks of 32 iterations and cuts the history at the
+    # crossing (the JAX package's semantics): the card runs more cycles
+    # than the solve counts, one more for the start
+    executed = min(-(-rep.niters // 32) * 32, 500)
+    ms_it = rep.t_solve / max(rep.niters, 1) * 1e3
+    ms_ex = rep.t_solve / (executed + 1) * 1e3
+    levels = [(L.A.shape[0], L.A.row_width, type(L.smoother).__name__)
+              for L in prec.levels]
+    say(f"[16 algebraic] n={n} dofs={A.shape[0]} metric_mono "
+        f"(metric_schwarz: HEM x2, W-cycle, SGS, interface Schwarz), f64: "
+        f"iterations {rep.niters} (JAX table: {ref}) converged "
+        f"{rep.converged} cond {rep.cond:.4f} true rel residual "
+        f"{true_rel:.3e} | set-up {rep.t_setup:.2f} s, solve "
+        f"{rep.t_solve:.3f} s, {ms_it:.2f} ms per counted PCG iteration, "
+        f"{ms_ex:.2f} ms per executed one ({executed} executed) | levels "
+        f"(rows, ELL width, smoother) {levels}, coarse "
+        f"{tuple(prec.coarse_inv.shape)}")
+    check(rep.converged and np.isfinite(true_rel) and true_rel < 1e-4,
+          f"metric_mono at n={n}: converged {rep.converged}, true rel "
+          f"residual {true_rel:.3e}")
+    check(ref is None or abs(rep.niters - ref) <= 1,
+          f"metric_mono at n={n}: {rep.niters} iterations vs the JAX "
+          f"table's {ref}")
+    check(rep.cond <= 3.0, f"metric_mono at n={n}: cond {rep.cond:.3f} > 3")
+    if dev.type != "cuda":
+        return prec
+    r = torch.as_tensor(np.random.default_rng(16).standard_normal(
+        A.shape[0])).to(dev)
+    prof = profile_busy(lambda: prec.matvec(r), dev)
+    Aop = ELL.from_host(A, dtype=torch.float64, device=dev)
+    bk = torch.as_tensor(b, dtype=torch.float64).to(dev)
+    prof_it = profile_busy(lambda: pcg(Aop, bk, M=prec, tol=0.0, maxiter=2,
+                                       chunk=2), dev)
+    if prof is None or prof_it is None:
+        say("[16 profile] not measured: the profiler saw no device time")
+        return prec
+    rows, busy, wall = prof
+    launches = sum(c for _, c, _ in rows)
+    kern_only = sum(c for k, c, _ in rows if not k.startswith("Memcpy")
+                    and not k.startswith("Memset"))
+    per_it = prof_it[1] / 3     # 2 iterations + the start, counted as one
+    say(f"[16 profile] one cycle: {launches} device operations "
+        f"({kern_only} kernels), device busy {busy:.1f} us of "
+        f"{wall * 1e3:.2f} ms wall with the profiler on | PCG: device busy "
+        f"{per_it:.1f} us per iteration, {ms_ex:.2f} ms per executed "
+        f"iteration without the profiler: idle share "
+        f"{1 - per_it / (ms_ex * 1e3):.4f}"
+        f" | device us by kernel (calls, total): "
+        + json.dumps([(k, c, round(u, 1)) for k, c, u in rows[:8]]))
+    return prec
+
+
+def phase17(dev, prec):
+    """The preconditioner, the ELL matvec and one GS and one Schwarz
+    sweep on the card against the same hierarchy on the CPU (f64)."""
+    rng = np.random.default_rng(17)
+    cpu = prec.to("cpu")
+    L, Lc = prec.levels[0], cpu.levels[0]
+    n = L.A.shape[0]
+    x, bb = (torch.as_tensor(rng.standard_normal(n)) for _ in range(2))
+    xd, bd = x.to(dev), bb.to(dev)
+    sm, smc = L.smoother, Lc.smoother
+    check(type(sm).__name__ == "MetricSmoother" and sm.gs is not None,
+          f"level 0 smoother is {type(sm).__name__}")
+    cases = {
+        "cycle": (lambda: prec.matvec(xd), lambda: cpu.matvec(x)),
+        "ELL matvec": (lambda: L.A.matvec(xd), lambda: Lc.A.matvec(x)),
+        "GS sweep": (lambda: sm.gs.smooth(L.A, xd, bd),
+                     lambda: smc.gs.smooth(Lc.A, x, bb)),
+        "Schwarz sweep": (lambda: sm.schwarz.smooth(L.A, xd, bd),
+                          lambda: smc.schwarz.smooth(Lc.A, x, bb)),
+    }
+    out = {}
+    for label, (on_dev, on_cpu) in cases.items():
+        got = on_dev().cpu()
+        ref = on_cpu()
+        err = rel_err(got, ref)
+        t_dev = timed_ms(on_dev, 3 if label == "cycle" else 20, dev, 1)
+        t_cpu = timed_ms(on_cpu, 1, torch.device("cpu"), 0)
+        out[label] = err
+        say(f"[17 parity] {label} at n={n}: rel diff card vs CPU {err:.3e} "
+            f"| card {t_dev:.4f} ms, CPU {t_cpu:.4f} ms")
+    check(all(np.isfinite(e) and e <= 1e-12 for e in out.values()),
+          f"card vs CPU (f64): {out} > 1e-12")
+
+
+def phase18(dev, n):
+    """The other -precond modes and MINRES/GMRES at n (default 64)."""
+    from tpuamg_torch.config import PRESETS
+    from tpuamg_torch.problems.solve import solve_system
+    from tpuamg_torch.sparse.host import extract_diag_blocks
+    A, b = system(GAMMA, n)
+    sizes = (A.shape[0] // 2,) * 2
+    idofs = np.arange(sizes[0], A.shape[0])
+    small = A.shape[0] == 8450         # the tables' n=64 row
+    for mode, method in (("hazmath", "cg"), ("hazmath_Schwarz", "cg"),
+                         ("hazmath_HEM", "cg"), ("metric", "cg"),
+                         ("metric_hazmath", "cg"), ("diag", "cg"),
+                         ("metric_mono", "minres"),
+                         ("metric_mono", "gmres")):
+        params = PRESETS["metric_schwarz"] if mode in (
+            "metric", "metric_mono", "metric_hazmath") else None
+        blocks = extract_diag_blocks(A, sizes) if mode == "diag" else None
+        # diag (exact blocks, not gamma-robust) takes 558 iterations here
+        rep = solve_system(A, b, mode, sizes, idofs=idofs, params=params,
+                           blocks=blocks, tol=1e-8, method=method,
+                           maxiter=2000 if mode == "diag" else 500,
+                           dtype=torch.float64, device=dev)
+        true_rel = float(np.linalg.norm(b - A.matvec(rep.x))
+                         / np.linalg.norm(b))
+        ref = ALG_ITERS_N64.get(mode) if small else None
+        say(f"[18 {mode} {method}] n={n}: iterations {rep.niters} "
+            f"(committed table, CG: {ref}) converged {rep.converged} cond "
+            f"{rep.cond:.4f} true rel residual {true_rel:.3e} | set-up "
+            f"{rep.t_setup:.2f} s, solve {rep.t_solve:.3f} s")
+        check(rep.converged and true_rel < 1e-3,
+              f"{mode} {method} at n={n} did not converge")
+        if mode in ("hazmath_HEM", "metric", "metric_hazmath") and small:
+            check(abs(rep.niters - ref) <= 1,
+                  f"{mode} at n={n}: {rep.niters} iterations vs {ref}")
+
+
+def run_algebraic_driver(dev, nrefs):
+    """Phase 19: the bidomain_2d driver with its default -backend
+    algebraic, in-process in a temporary working directory."""
+    import os
+    import tempfile
+    from tpuamg_torch.problems.bidomain_2d import PRECONDS, run
+    from tpuamg_torch.problems.driver import standard_parser
+    argv = ["-precond", "metric_mono", "-nrefs", str(nrefs), "-gamma",
+            "1e8"]
+    args = standard_parser("hazmath", PRECONDS).parse_args(argv)
+    check(args.backend == "algebraic" and args.dtype == "float64",
+          f"driver defaults {args.backend} {args.dtype}")
+    here = os.getcwd()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            tables = run(args, device=dev)
+        finally:
+            os.chdir(here)
+    its = [int(row[1]) for row in tables.table_ksp]
+    say(f"[19 driver] python -m tpuamg_torch.problems.bidomain_2d "
+        f"{' '.join(argv)}: {time.perf_counter() - t0:.1f} s | iterations "
+        f"{its} (JAX table: {list(ALG_ITERS_1E8[:nrefs])})")
+    say("[19 driver] ksp rows " + json.dumps(
+        [[float(v) for v in row] for row in tables.table_ksp]))
+    say("[19 driver] error rows " + json.dumps(
+        [[float(v) for v in row] for row in tables.table_error]))
+    for got, ref in zip(its, ALG_ITERS_1E8):
+        check(abs(got - ref) <= 1, f"driver iterations {its} vs "
+              f"{ALG_ITERS_1E8}")
+    for row in tables.table_error[1:]:
+        check(0.9 <= row[3] <= 1.1 and 0.9 <= row[5] <= 1.1,
+              f"driver H1 rates {row[3]:.3f}, {row[5]:.3f} outside "
+              f"[0.9, 1.1]")
 
 
 def route_pair(fp, bk, vc, A, b, slots, n, dev, its_a, plain, ms_a=None):
@@ -1666,20 +1910,35 @@ def op_times(vc, bm, dev, reps=20):
             f"{t1 * 1e3:.2f} us) | streams {nbytes} B, bound "
             f"{bound:.2f} us -> {bound / us:.3f} of bound")
     one = table([step], 1)
-    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
-
-    def launches(cold):
-        for _ in range(10):
-            if cold:
-                flush.fill_(1.0)
-            _cycle_persistent(vc, bm, _ops=one)
-    dev_us = {}
-    for cold in (False, True):
-        prof = profile_busy(lambda c=cold: launches(c), dev)
-        dev_us[cold] = "not measured" if prof is None else "%.2f us" % (
-            sum(u for k, _, u in prof[0] if "cycle_persistent" in k) / 10)
+    dev_us = warm_cold_us(lambda: _cycle_persistent(vc, bm, _ops=one),
+                          "cycle_persistent", dev)
     say(f"[4 op] level-0 CHEB_STEP alone, device time per launch: warm "
-        f"{dev_us[False]}, cold (after a 128 MB write) {dev_us[True]}")
+        f"{fmt_us(dev_us[False])}, cold (after a 128 MB write) "
+        f"{fmt_us(dev_us[True])}")
+    return out
+
+
+def fmt_us(v):
+    return v if isinstance(v, str) else f"{v:.2f} us"
+
+
+def warm_cold_us(launch, kernel, dev, reps=10):
+    """Device time per launch of `kernel` (us, profiler), {False: warm L2
+    (the same inputs launch after launch), True: cold (each launch after
+    a 128 MB write, which evicts the 50 MB L2)}; "not measured" where the
+    profiler saw no device time."""
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    out = {}
+    for cold in (False, True):
+        def go(cold=cold):
+            for _ in range(reps):
+                if cold:
+                    flush.fill_(1.0)
+                launch()
+        prof = profile_busy(go, dev)
+        us = None if prof is None else sum(
+            u for k, _, u in prof[0] if kernel in k) / reps
+        out[cold] = "not measured" if not us else us
     return out
 
 

@@ -23,10 +23,17 @@ import tpuamg_torch.amg.hierarchy, tpuamg_torch.amg.structured
 import tpuamg_torch.io_utils, tpuamg_torch.fem.error
 import tpuamg_torch.dist, tpuamg_torch.dist.dist_kernels
 import tpuamg_torch.dist.sharding, tpuamg_torch.dist.solve
+import tpuamg_torch.native, tpuamg_torch.sparse.device
+import tpuamg_torch.amg.strength, tpuamg_torch.amg.prolongation
+import tpuamg_torch.amg.aggregation, tpuamg_torch.smoothers
+import tpuamg_torch.smoothers.relaxation, tpuamg_torch.smoothers.schwarz
+import tpuamg_torch.smoothers.schwarz_setup
+import tpuamg_torch.krylov.minres, tpuamg_torch.krylov.gmres
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'tpuamg'))
 print('BAD', bad)
 print('LIB', tpuamg_torch.kernels._lib)
+print('NATIVE', tpuamg_torch.native._lib)
 """
 
 
@@ -37,6 +44,7 @@ def test_import_loads_neither_jax_nor_tpuamg():
                          cwd=Path(__file__).resolve().parents[1]).stdout
     assert "BAD []" in out, out
     assert "LIB None" in out, out      # nothing built or loaded at import
+    assert "NATIVE None" in out, out
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):
@@ -58,6 +66,11 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
         setup_grid(A, (2, 2), F=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         solve_system(A, np.ones(4), "metric_mono", (4,), grid=((2, 2), 1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_system(A, np.ones(4), "metric_mono", (4,))
+    from tpuamg_torch.amg.hierarchy import setup_amg
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        setup_amg(A)
     from tpuamg_torch.dist import device_mesh, distributed_grid_solve
     with pytest.raises(RuntimeError, match="device='cpu'"):
         device_mesh()

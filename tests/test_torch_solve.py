@@ -134,15 +134,22 @@ def test_routing_rule(params, dtype, pallas, route):
 
 
 def test_unported_branches_raise():
+    """The algebraic branch (no grid, and -precond diag with one) and
+    MINRES on the grid branch run; the structured branch (item 10) still
+    raises."""
     A, b, sizes, _ = _system(1e2, n=8)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsolve.solve_system(A, b, "metric_mono", sizes, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsolve.solve_system(A, b, "diag", sizes, grid=((9, 9), 2),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsolve.solve_system(A, b, "metric_mono", sizes, grid=((9, 9), 2),
-                            method="minres", device="cpu")
+    idofs = np.arange(sizes[0], len(b))
+    rep = tsolve.solve_system(A, b, "metric_mono", sizes, idofs=idofs,
+                              device="cpu")
+    assert rep.converged and rep.route == "" and _rel(A, b, rep.x) < 1e-6
+    from tpuamg_torch.sparse.host import extract_diag_blocks
+    rep = tsolve.solve_system(A, b, "diag", sizes, grid=((9, 9), 2),
+                              blocks=extract_diag_blocks(A, sizes),
+                              device="cpu")
+    assert rep.converged and rep.route == "" and _rel(A, b, rep.x) < 1e-6
+    rep = tsolve.solve_system(A, b, "metric_mono", sizes, grid=((9, 9), 2),
+                              method="minres", device="cpu")
+    assert rep.converged and rep.route == "c" and _rel(A, b, rep.x) < 1e-6
     with pytest.raises(NotImplementedError, match="item 10"):
         tsolve.solve_system(A, b, "metric_mono", sizes,
                             structured_coords=np.zeros((len(b), 2)),
@@ -254,12 +261,16 @@ def test_driver_matches_jax(tmp_path, monkeypatch, capsys):
 
 
 def test_driver_unported_options_raise(tmp_path, monkeypatch):
+    """-backend algebraic (the default) and -precond diag run; P2 (item
+    11) still raises."""
     from tpuamg_torch.problems.bidomain_2d import run
     monkeypatch.chdir(tmp_path)
-    args = _args()
-    args.backend = "algebraic"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        run(args, device="cpu")
+    for precond in ("metric_mono", "diag"):
+        args = _args()
+        args.backend = "algebraic"
+        args.precond = precond
+        row = run(args, device="cpu").table_ksp[0]
+        assert row[0] == 2178 and 0 < row[1] < 500, (precond, row)
     with pytest.raises(NotImplementedError, match="item 11"):
         run(_args(pdegree=2), device="cpu")
 

@@ -17,12 +17,29 @@ there (``torch.where``), so a cycle never waits for the host.  Their inner
 products go through the level operator's ``dots`` where it has them (a
 row-sharded level's, which all-reduce over the ranks).
 
+The algebraic set-up (``setup_amg``) builds ``MGLevel`` levels on the
+host — strength graph, aggregation, UA or SA transfers, Galerkin coarse
+operators, the level smoothers (multicolor GS, Jacobi, Chebyshev, interface
+Schwarz) and a float64 dense coarse inverse — and ships them to the device
+as ELL matrices and index tensors.
+
 The split application of the host-tail hybrids (``cycle_down`` /
 ``cycle_up``) is ROADMAP Queue 1 item 9 and is not here yet.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..config import AMGParameters
+from ..kernels import resolve_device
+from ..sparse.device import ELL
+from ..sparse.host import HostCSR, pad_csr_identity, rap_unsmoothed
+from ..smoothers import (build_jacobi, build_l1_jacobi, build_multicolor_gs,
+                         build_chebyshev, MetricSmoother)
+from .aggregation import AGGREGATORS, hem_aggregation, mwm_aggregation
+from .prolongation import tentative_prolongator, smoothed_prolongator
+from .strength import strength_graph
 
 
 def _vdot(u, v):
@@ -37,6 +54,38 @@ def _dot_of(A):
     if dots is None:
         return _vdot
     return lambda u, v: dots((u, v))[0]
+
+
+class MGLevel:
+    """One algebraic level: the fine operator (ELL), its smoother and the
+    transfer to the next level — the aggregate map ``agg`` (UA: restrict
+    is a scatter-add, prolong a gather) or the ELL matrices ``P``/``R``
+    (SA).  ``nc`` is the coarse size."""
+
+    def __init__(self, A: ELL, smoother, agg=None, P=None, R=None, nc=0):
+        self.A = A
+        self.smoother = smoother
+        self.agg = agg      # (n,) int64 aggregate map (UA transfers)
+        self.P = P          # ELL (SA) or None
+        self.R = R          # ELL (SA) or None
+        self.nc = nc
+
+    def restrict(self, r):
+        if self.agg is not None:
+            return torch.zeros(self.nc, dtype=r.dtype,
+                               device=r.device).index_add_(0, self.agg, r)
+        return self.R.matvec(r)
+
+    def prolong(self, ec):
+        if self.agg is not None:
+            return ec[self.agg]
+        return self.P.matvec(ec)
+
+    def to(self, device):
+        def mv(t):
+            return None if t is None else t.to(device)
+        return MGLevel(self.A.to(device), self.smoother.to(device),
+                       mv(self.agg), mv(self.P), mv(self.R), self.nc)
 
 
 class MGPreconditioner:
@@ -174,7 +223,177 @@ class MGPreconditioner:
         # keep the Krylov iteration's dtype even if hierarchy data is wider
         return x.to(b.dtype)
 
+    def to(self, device):
+        """The same hierarchy on another device (levels with ``to``)."""
+        return MGPreconditioner(
+            [L.to(device) for L in self.levels],
+            self.coarse_inv.to(device), cycle=self.cycle, maxit=self.maxit,
+            presmooth=self.presmooth, postsmooth=self.postsmooth,
+            amli_degree=self.amli_degree, max_w_work=self.max_w_work,
+            coarse_scaling=self.coarse_scaling)
+
 
 def as_operator(prec: MGPreconditioner):
     """The preconditioner as a krylov-compatible callable."""
     return prec.matvec
+
+
+# ---------------------------------------------------------------------------
+# Algebraic set-up
+# ---------------------------------------------------------------------------
+
+def _build_level_smoother(A: HostCSR, params: AMGParameters, level,
+                          idofs, dtype, device):
+    if level < params.schwarz_levels:
+        # Blocks are *seeded* at interface dofs but grow through the full
+        # matrix graph: the gamma*M coupling reaches the partner dofs
+        # outside the interface set, and block solves must capture that
+        # pair coupling for gamma-robustness.
+        from ..smoothers.schwarz_setup import build_schwarz_fast
+        schwarz = build_schwarz_fast(
+            A, idofs=idofs if idofs is not None
+            else np.arange(A.shape[0]),
+            maxlvl=params.schwarz_maxlvl,
+            mmsize=params.schwarz_mmsize,
+            symmetric=(params.schwarz_type == "symmetric"),
+            dtype=dtype, cluster=params.schwarz_cluster, device=device)
+        if idofs is not None and len(idofs) < A.shape[0]:
+            # the complement smoother (GS elsewhere, reference utils.py:84);
+            # smoother="chebyshev" takes masked Chebyshev, which is exactly
+            # Chebyshev on the complement block
+            mask = np.ones(A.shape[0], dtype=bool)
+            mask[idofs] = False
+            if params.smoother == "chebyshev":
+                gs = build_chebyshev(A, degree=3, active=mask, dtype=dtype,
+                                     device=device)
+            else:
+                gs = build_multicolor_gs(
+                    A, omega=1.0, symmetric=False, active=mask,
+                    max_colors=params.gs_max_colors, dtype=dtype,
+                    device=device)
+        else:
+            gs = None
+        return MetricSmoother(schwarz, gs)
+    sm = params.smoother
+    kw = dict(dtype=dtype, device=device)
+    if sm == "jacobi":
+        return build_jacobi(A, omega=1.0 / params.relaxation, **kw)
+    if sm == "l1_jacobi":
+        return build_l1_jacobi(A, **kw)
+    if sm == "chebyshev":
+        return build_chebyshev(A, degree=3, **kw)
+    mc = params.gs_max_colors
+    if sm == "gs":
+        return build_multicolor_gs(A, omega=1.0, symmetric=False,
+                                   max_colors=mc, **kw)
+    if sm == "sor":      # HAZmath SOR = GS with relaxation weight
+        return build_multicolor_gs(A, omega=params.relaxation,
+                                   symmetric=False, max_colors=mc, **kw)
+    if sm == "ssor":
+        return build_multicolor_gs(A, omega=params.relaxation,
+                                   symmetric=True, max_colors=mc, **kw)
+    # default sgs
+    return build_multicolor_gs(A, omega=1.0, symmetric=True, max_colors=mc,
+                               **kw)
+
+
+def _batch_isolated_rows(A: HostCSR, agg, nagg, max_aggregation):
+    """Merge aggregates of off-diagonal-free rows into batches."""
+    r, c, _ = A.to_coo()
+    offdeg = np.zeros(A.shape[0], dtype=np.int64)
+    np.add.at(offdeg, r[r != c], 1)
+    iso = np.flatnonzero(offdeg == 0)
+    if len(iso) < 2:
+        return agg, nagg
+    group = max(2, int(max_aggregation))
+    new_ids = nagg + np.arange(len(iso)) // group
+    agg = agg.copy()
+    agg[iso] = new_ids
+    used, inv = np.unique(agg[agg >= 0], return_inverse=True)
+    out = np.full(len(agg), -1, dtype=np.int64)
+    out[agg >= 0] = inv
+    return out, len(used)
+
+
+def setup_amg(A_host: HostCSR, params: AMGParameters = AMGParameters(),
+              idofs=None, pad_multiple=1, device=None) -> MGPreconditioner:
+    """Build the algebraic multilevel hierarchy on the host and ship it
+    to the device (None = the CUDA card, "cpu" = the plain versions).
+
+    idofs: interface dof indices — rows that get the Schwarz treatment on
+    Schwarz-enabled levels (metricAMG semantics, reference
+    utils.py:86-88), carried to coarse levels through the aggregate map.
+
+    pad_multiple: pad every level's row count to this multiple with inert
+    identity rows (row sharding over a device mesh); callers pad the RHS
+    to match."""
+    dev = resolve_device(device)
+    dtype = torch.float64 if params.dtype == "float64" else torch.float32
+    aggregate = AGGREGATORS[params.aggregation_type]
+    levels = []
+    A = pad_csr_identity(A_host, pad_multiple)
+    cur_idofs = None if idofs is None else np.asarray(idofs, dtype=np.int64)
+    while (len(levels) < params.max_levels - 1
+           and A.shape[0] > params.coarse_dof):
+        # UA coarse operators grow their diagonal with aggregate size, so a
+        # fixed strength threshold starves the strength graph on coarse
+        # levels: decay theta per level, as HAZmath does on coarse grids.
+        theta = params.strong_coupled * (0.5 ** len(levels))
+        S = strength_graph(A, theta)
+        if params.aggregation_type in ("hem", "mwm"):
+            # pairwise matchings coarsen by <=2x per pass; compose passes
+            pair = (hem_aggregation if params.aggregation_type == "hem"
+                    else mwm_aggregation)
+            agg, nagg = pair(S)
+            for _ in range(params.pairwise_passes - 1):
+                if nagg <= params.coarse_dof:
+                    break
+                Ac_tmp = rap_unsmoothed(A, agg, nagg)
+                S2 = strength_graph(Ac_tmp, theta)
+                agg2, nagg2 = pair(S2)
+                agg = agg2[agg]
+                nagg = nagg2
+        else:
+            agg, nagg = aggregate(S, params.max_aggregation)
+        # Rows with no off-diagonal coupling (eliminated Dirichlet rows)
+        # never aggregate and would stall coarsening as singletons: batch
+        # them into group aggregates (one pre-smoothing solves them
+        # exactly, so their coarse correction never activates).
+        agg, nagg = _batch_isolated_rows(A, agg, nagg,
+                                         params.max_aggregation)
+        if nagg > 0.85 * A.shape[0]:   # stagnation — dense-solve the rest
+            break
+        smoother = _build_level_smoother(A, params, len(levels), cur_idofs,
+                                         dtype, dev)
+        if params.amg_type == "sa":
+            if pad_multiple != 1:
+                raise NotImplementedError(
+                    "pad_multiple with SA transfers (UA only)")
+            P_t = tentative_prolongator(agg, nagg)
+            P = smoothed_prolongator(A, P_t, params.strong_coupled)
+            R = P.T
+            Ac = R.matmat(A.matmat(P))
+            levels.append(MGLevel(
+                ELL.from_host(A, dtype=dtype, device=dev), smoother,
+                P=ELL.from_host(P, dtype=dtype, device=dev),
+                R=ELL.from_host(R, dtype=dtype, device=dev), nc=nagg))
+        else:
+            Ac = pad_csr_identity(rap_unsmoothed(A, agg, nagg),
+                                  pad_multiple)
+            levels.append(MGLevel(
+                ELL.from_host(A, dtype=dtype, device=dev), smoother,
+                agg=torch.as_tensor(agg, dtype=torch.int64).to(dev),
+                nc=Ac.shape[0]))
+        if cur_idofs is not None:
+            cur_idofs = np.unique(agg[cur_idofs])
+            cur_idofs = cur_idofs[cur_idofs >= 0]
+        A = Ac
+    # the coarse inverse in float64 on the host, stored in the level dtype
+    coarse_inv = np.linalg.inv(A.toarray()) if A.shape[0] > 0 else \
+        np.zeros((0, 0))
+    return MGPreconditioner(
+        levels, torch.as_tensor(coarse_inv, dtype=dtype).to(dev),
+        cycle=params.cycle_type, maxit=params.maxit,
+        presmooth=params.presmooth_iter, postsmooth=params.postsmooth_iter,
+        amli_degree=params.amli_degree, max_w_work=params.max_w_work,
+        coarse_scaling=params.coarse_scaling)

@@ -220,7 +220,8 @@ def shard_preconditioner(prec: MGPreconditioner, mesh,
         if type(L) is not GridLevel:
             raise NotImplementedError(
                 f"sharding a {type(L).__name__}: the algebraic (ELL) and "
-                f"structured hierarchies are ROADMAP Queue 1 items 8 and 10")
+                f"structured hierarchies are ROADMAP Queue 1 items 12 and "
+                f"10")
     sharded = [_is_sharded(L, mesh, replicate_below) for L in prec.levels]
     levels = [_shard_grid_level(L, mesh, s, nxt)
               for L, s, nxt in zip(prec.levels, sharded,

@@ -9,8 +9,9 @@ are replicated.  With the kernels (f32/bf16 data), every sharded level's
 smoother becomes a ``ShardedChebSmoother`` (K6 per step) and the outer
 operator a ``ShardedPDIA`` (K1's padded-x entry).
 
-The algebraic ``distributed_solve`` and ``distributed_pcg_step`` (ELL
-hierarchy) wait for ROADMAP Queue 1 item 8.
+The algebraic ``distributed_solve`` and ``distributed_pcg_step`` (the ELL
+hierarchy of ``amg.hierarchy.setup_amg``, sharded) wait for ROADMAP Queue
+1 item 12.
 """
 from __future__ import annotations
 

@@ -5,15 +5,18 @@ CLI-compatible rebuild of the reference driver bidomain_2d.py:105-278:
 refinement sweep ncells = 2^5 .. 2^(4+nrefs), PCG to 1e-8, iteration/cond
 and H1-error tables printed and written to ./results/bidomain_2d/.
 
-Run (the grid backend is the one ported so far):
+Run (on the CUDA card; from Python, ``run(args, device="cpu")`` runs the
+plain versions on the CPU):
 
-    python -m tpuamg_torch.problems.bidomain_2d -backend grid \\
-        -dtype float32 -nrefs 4 -gamma 1e6 -precond metric_mono
+    python -m tpuamg_torch.problems.bidomain_2d -precond metric_mono \\
+        -nrefs 4 -gamma 1e8
 
-``-backend algebraic`` (the default, as in the JAX driver) and
-``-precond diag`` take the algebraic metric-AMG branch, ROADMAP Queue 1
-item 8; P2 (``-pdegree 2``) and ``-save`` (VTU output) wait for item 11.
-All raise NotImplementedError.
+The default ``-backend algebraic`` (float64, as in the JAX driver) takes
+the algebraic metric-AMG branch of ``solve_system`` for every
+``-precond`` mode; ``-precond diag`` hands it the diagonal blocks
+(``extract_diag_blocks``).  ``-backend grid`` takes the structured-grid
+hierarchy (P1).  P2 (``-pdegree 2``) and ``-save`` (VTU output) wait for
+ROADMAP Queue 1 item 11 and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import numpy as np
 from ..config import PRESETS
 from ..fem import mms
 from ..io_utils import print_red
+from ..sparse.host import extract_diag_blocks
 from .bidomain import Params, get_mesh, get_system, compute_errors
 from .driver import standard_parser, ExperimentTables, config_tag
 from .solve import solve_system
@@ -33,10 +37,6 @@ PRECONDS = ("diag", "hazmath", "hazmath_Schwarz", "hazmath_HEM",
 def run(args, dim=2, start_exp=5, name="bidomain_2d", device=None):
     """The refinement sweep of the reference driver; returns the tables.
     device: None = the CUDA card, "cpu" = the plain versions."""
-    if getattr(args, "backend", "algebraic") != "grid":
-        raise NotImplementedError(
-            "-backend algebraic is the algebraic metric-AMG path, ROADMAP "
-            "Queue 1 item 8; run with -backend grid")
     if args.pdegree != 1:
         raise NotImplementedError("P2 (fem/pk.py) is ROADMAP Queue 1 "
                                   "item 11")
@@ -55,14 +55,20 @@ def run(args, dim=2, start_exp=5, name="bidomain_2d", device=None):
         mesh = get_mesh(ncells, dim)
         A, b, sizes, _ = get_system(mesh, data, params,
                                     pdegree=args.pdegree)
+        idofs = np.arange(sizes[0], sizes[0] + sizes[1])
+        blocks = (extract_diag_blocks(A, sizes) if args.precond == "diag"
+                  else None)
 
         # parameter dispatch of bidomain_2d.py:194-201: metric family uses
         # parameters_metric_schwarz explicitly (maxlvl=1)
         amg_params = PRESETS["metric_schwarz"] if args.precond in (
             "metric", "metric_mono", "metric_hazmath") else None
 
-        grid = ((ncells + 1,) * dim, 2)   # P1: vertex dofs, 2 fields
-        rep = solve_system(A, b, args.precond, sizes, params=amg_params,
+        grid = None
+        if getattr(args, "backend", "algebraic") == "grid":
+            grid = ((ncells + 1,) * dim, 2)   # P1: vertex dofs, 2 fields
+        rep = solve_system(A, b, args.precond, sizes, idofs=idofs,
+                           params=amg_params, blocks=blocks,
                            tol=1e-8, maxiter=500, dtype=dtype, grid=grid,
                            timing_runs=getattr(args, "timing_runs", 1),
                            device=device)

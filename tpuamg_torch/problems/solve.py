@@ -1,9 +1,21 @@
-"""Monolithic solve orchestration: the grid branch of ``solve_system``.
+"""Preconditioner factories and monolithic solve orchestration.
 
 Counterpart of the JAX package's ``problems/solve.py``: ``SolveReport``,
-``solve_system`` for structured grids (``grid=(dims, F)``), and its
-float64 defect-correction loop (``refine``).  The grid branch has three
-routes, chosen by the JAX package's rule (on its accelerator):
+``block_diag_precond`` and ``make_preconditioner`` (the reference's
+``-precond`` modes, reference utils.py:9-127), ``solve_system`` and its
+float64 defect-correction loop (``refine``).
+
+Without a grid (and for ``-precond diag``), ``solve_system`` takes the
+algebraic branch: ``make_preconditioner`` builds the mode's metric-AMG
+hierarchy on the host (``amg.hierarchy.setup_amg``: HEM or VMB
+aggregation, multicolor GS, interface Schwarz) or the exact block-diagonal
+preconditioner, and the outer operator is the ELL matrix of A
+(``matvec_op(ELL.from_host(A))``), in ``krylov_dtype`` vectors where given.
+The algebraic path has no hand-written kernel: its device work is torch
+ops, as the JAX package's is XLA ops.  PCG, MINRES and GMRES run on it.
+
+The grid branch (``grid=(dims, F)``) has three routes, chosen by the JAX
+package's rule (on its accelerator):
 
   (a) chunked fused PCG: method "cg", float32, a V/W cycle with maxit=1,
       at most ``FUSED_PCG_MAX_DOFS`` dofs -> ``setup_grid_fused_pcg`` +
@@ -22,9 +34,9 @@ cycle allows), True (route (c) with the kernel classes), False (route
 present; ``device`` (None = the CUDA card, "cpu" = the plain versions)
 only decides how the chosen route runs.
 
-The algebraic branch (``make_preconditioner``, every ``-precond`` mode
-without a grid), the structured branch and MINRES/GMRES are ROADMAP
-Queue 1 items 8 and 10; they raise NotImplementedError.
+MINRES and GMRES run on routes (b) and (c) of the grid branch, as in the
+JAX package.  The structured branch (``structured_coords``) is ROADMAP
+Queue 1 item 10 and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -35,9 +47,11 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..amg.hierarchy import as_operator, setup_amg
 from ..config import AMGParameters, PRESETS
-from ..krylov import pcg
-from ..sparse import HostCSR
+from ..krylov import gmres, minres, pcg
+from ..sparse.device import ELL, matvec_op
+from ..sparse.host import HostCSR
 
 # Above this many dofs route (a) gives way to route (b).  The number is a
 # TPU measurement (docs/PERF_NOTES.md:156-168: the chunked kernel won at
@@ -72,6 +86,83 @@ def _torch_dtype(dtype):
     return getattr(torch, name)
 
 
+def _dense_inv_op(A: HostCSR, dtype, device):
+    inv = torch.as_tensor(np.linalg.inv(A.toarray()), dtype=dtype
+                          ).to(device)
+    return lambda r: inv @ r
+
+
+def block_diag_precond(blocks, dtype=torch.float64, size_limit=30000,
+                       device=None):
+    """Exact block-diagonal preconditioner (LU role of reference
+    utils.py:9-12).
+
+    Blocks of up to ``size_limit`` rows invert densely on the host (the
+    UMFPACK stand-in); larger blocks take three VMB V-cycles (still a
+    fixed linear operator, so outer CG stays valid).  device: None = the
+    CUDA card, "cpu" = the plain versions."""
+    dev = kernels.resolve_device(device)
+    dt = _torch_dtype(dtype)
+    ops = []
+    offs = [0]
+    for B in blocks:
+        nb = B.shape[0]
+        offs.append(offs[-1] + nb)
+        if nb <= size_limit:
+            ops.append(_dense_inv_op(B, dt, dev))
+        else:
+            prm = AMGParameters(aggregation_type="vmb", cycle_type="v",
+                                maxit=3, dtype=_dtype_name(dt))
+            ops.append(as_operator(setup_amg(B, prm, device=dev)))
+
+    def _apply(r):
+        return torch.cat([ops[i](r[offs[i]:offs[i + 1]])
+                          for i in range(len(ops))])
+    return _apply
+
+
+def make_preconditioner(precond: str, A: HostCSR, sizes, idofs=None,
+                        params: AMGParameters = None, blocks=None,
+                        dtype=torch.float64, device=None):
+    """Map the reference's -precond choices to AMG setups (reference
+    bidomain_2d.py:155-160, 190-203); returns the preconditioner as a
+    callable.  device: None = the CUDA card, "cpu" = the plain versions."""
+    if precond == "diag":
+        if blocks is None:
+            raise ValueError("precond='diag' needs the diagonal blocks "
+                             "(sparse.host.extract_diag_blocks)")
+        return block_diag_precond(blocks, dtype=dtype, device=device)
+    if params is None:
+        # 'metric'/'metric_mono' with no explicit parameters take the
+        # metricAMG defaults of reference utils.py:60-82
+        # (Schwarz_maxlvl=2); the bidomain driver passes
+        # parameters_metric_schwarz (reference bidomain_2d.py:201).
+        # hazmath_HEM passes parameters_metric (Schwarz_levels 0) but
+        # hands the interface dofs to metricAMG, whose contract is
+        # "the interface_dofs has the Schwarz and the rest the GS
+        # smoother" (reference utils.py:84): its preset has the Schwarz.
+        params = {
+            "hazmath": PRESETS["standard"],
+            "hazmath_Schwarz": PRESETS["standard_schwarz"],
+            "hazmath_HEM": PRESETS["metric_schwarz"],
+            "metric": PRESETS["metric_mono_default"],
+            "metric_mono": PRESETS["metric_mono_default"],
+            "metric_hazmath": PRESETS["metric_mono_default"],
+        }[precond]
+    wanted = _dtype_name(_torch_dtype(dtype))
+    if params.dtype != wanted:
+        params = replace(params, dtype=wanted)
+    # plain 'hazmath' uses no interface information (reference
+    # utils.py:15-42); the Schwarz/metric family takes idofs (:84-88)
+    if precond == "hazmath":
+        idofs = None
+    return as_operator(setup_amg(A, params, idofs=idofs, device=device))
+
+
+def _dtype_name(dt):
+    return str(dt).replace("torch.", "")
+
+
 def solve_system(A: HostCSR, b, precond: str, sizes, idofs=None,
                  params: AMGParameters = None, blocks=None,
                  tol=1e-8, maxiter=500, method="cg", stop_type=2,
@@ -82,8 +173,20 @@ def solve_system(A: HostCSR, b, precond: str, sizes, idofs=None,
                  device=None) -> SolveReport:
     """Solve A x = b with a multigrid-preconditioned Krylov method.
 
-    grid: (dims, F) — the structured-grid hierarchy, the one branch ported
-    so far (routes (a)-(c) in the module docstring).
+    Without ``grid`` (and for precond="diag"): the algebraic branch,
+    ``make_preconditioner`` + the ELL outer operator (module docstring);
+    ``idofs`` are the interface dofs of the Schwarz/metric modes,
+    ``blocks`` the diagonal blocks of "diag", and ``krylov_dtype`` the
+    dtype of the Krylov vectors (default ``dtype``: f64 vectors over an
+    f32 hierarchy promote every recurrence to f64).
+
+    grid: (dims, F) — the structured-grid hierarchy, routes (a)-(c) in
+    the module docstring.  The grid branch ignores ``idofs`` and
+    ``blocks``, as the JAX grid branch does, and raises the JAX
+    ValueError for ``krylov_dtype != dtype``.
+
+    method: "cg", "minres" or "gmres" (GMRES restarts every 30).  The
+    ``cond`` of the report is PCG's Lanczos estimate, NaN for the others.
 
     timing_runs: with 2+, after the first solve completes, the solve
     re-runs and ``t_solve`` reports the LAST run (the first pays the
@@ -100,42 +203,129 @@ def solve_system(A: HostCSR, b, precond: str, sizes, idofs=None,
     chunk: PCG iterations between host reads (krylov.pcg chunk; the
     fused route (a) keeps pcg_fused's own default of 32).
 
-    The parameters shared with the JAX signature come in its order.  The
-    grid branch ignores ``idofs`` and ``blocks``, as the JAX grid branch
-    does, and raises the JAX ValueError for ``krylov_dtype != dtype``.
+    The parameters shared with the JAX signature come in its order.
 
     device: None = the CUDA card (an error without one); "cpu" runs the
     plain versions."""
-    if structured_coords is not None and grid is None:
+    if structured_coords is not None and grid is None \
+            and precond not in ("diag",):
         raise NotImplementedError(
             "the structured hierarchy (amg/structured.setup_structured) "
             "is ROADMAP Queue 1 item 10")
-    if grid is None or precond in ("diag",):
-        raise NotImplementedError(
-            f"precond={precond!r} without a grid takes the algebraic "
-            f"metric-AMG branch (make_preconditioner), ROADMAP Queue 1 "
-            f"item 8")
-    if method != "cg":
-        raise NotImplementedError(
-            f"method={method!r}: MINRES and GMRES are ROADMAP Queue 1 "
-            f"item 8")
-    from ..amg.grid import setup_grid, grid_system
-    from ..amg.grid_fused import (setup_grid_fused, setup_grid_fused_pcg,
-                                  grid_system_fused, fused_operator,
-                                  pcg_fused)
-    from ..amg.hierarchy import as_operator
-
     dev = kernels.resolve_device(device)
     dt = _torch_dtype(dtype)
+    fp = None          # whole-chunk fused PCG runner (grid route (a))
+    slots = None       # the grid's dof -> slot map
+    route = ""
+    if grid is not None and precond not in ("diag",):
+        (fp, prec, Aop, M, slots, nsl, route, t_setup) = _grid_branch(
+            A, grid, params, dt, method, pallas, krylov_dtype, dev)
+        vec_dt = dt
+    else:
+        t0 = time.time()
+        M = make_preconditioner(precond, A, sizes, idofs=idofs,
+                                params=params, blocks=blocks, dtype=dt,
+                                device=dev)
+        _sync(dev)
+        t_setup = time.time() - t0
+        Aop = matvec_op(ELL.from_host(A, dtype=dt, device=dev))
+        vec_dt = dt if krylov_dtype is None else _torch_dtype(krylov_dtype)
+
+    if slots is not None:
+        slots_t = torch.as_tensor(slots, device=dev)
+
+    def _vector(v):
+        v = torch.as_tensor(np.asarray(v), dtype=vec_dt).to(dev)
+        if slots is None:
+            return v
+        out = torch.zeros(nsl, dtype=vec_dt, device=dev)
+        out[slots_t] = v
+        return out
+
+    bj = _vector(b)
+    t0 = time.time()
+
+    def _run(bdev, ktol, miter):
+        if fp is not None:
+            from ..amg.grid_fused import pcg_fused
+            r = pcg_fused(fp, bdev, tol=ktol, maxiter=miter,
+                          callback=callback, stop_type=stop_type)
+        elif method == "cg":
+            r = pcg(Aop, bdev, M=M, tol=ktol, maxiter=miter,
+                    callback=callback, stop_type=stop_type,
+                    **({"chunk": chunk} if chunk else {}))
+        elif method == "minres":
+            r = minres(Aop, bdev, M=M, tol=ktol, maxiter=miter)
+        else:
+            r = gmres(Aop, bdev, M=M, tol=ktol, maxiter=miter)
+        xs = r.x.double().cpu().numpy()
+        if slots is not None:
+            xs = xs[slots]
+        return xs, r
+
+    if refine:
+        # f64 defect correction around the device-precision inner solve,
+        # on the same route and the same hierarchy
+        b64 = np.asarray(b, dtype=np.float64)
+        bnorm = np.linalg.norm(b64) or 1.0
+        x = np.zeros_like(b64)
+        total_iters, cond = 0, float("nan")
+        hist = []
+        pass_iters = []
+        for step in range(refine):
+            r64 = b64 - A.matvec(x)
+            rel = np.linalg.norm(r64) / bnorm
+            hist.append(rel)
+            if rel < tol:
+                break
+            d, res = _run(_vector(r64), inner_tol, maxiter)
+            if step == 0 and method == "cg":
+                cond = res.cond
+            total_iters += res.niters
+            pass_iters.append(int(res.niters))
+            x = x + d
+        rel = np.linalg.norm(b64 - A.matvec(x)) / bnorm
+        hist.append(rel)
+        t_solve = time.time() - t0
+        return SolveReport(
+            x=x, niters=total_iters, converged=bool(rel < tol), cond=cond,
+            r_norm=float(rel), t_setup=t_setup, t_solve=t_solve,
+            residuals=np.asarray(hist), pass_iters=tuple(pass_iters),
+            route=route)
+
+    x, res = _run(bj, tol, maxiter)
+    cond = res.cond if method == "cg" else float("nan")
+    t_solve = time.time() - t0
+    for _ in range(int(timing_runs) - 1):
+        t0 = time.time()
+        _run(bj, tol, maxiter)
+        t_solve = time.time() - t0
+    return SolveReport(
+        x=x, niters=res.niters, converged=res.converged, cond=cond,
+        r_norm=float(res.residuals[-1]), t_setup=t_setup, t_solve=t_solve,
+        residuals=res.residuals, route=route)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _grid_branch(A, grid, params, dt, method, pallas, krylov_dtype, dev):
+    """The grid branch's set-up: returns (fp, prec, Aop, M, slots, nsl,
+    route, t_setup)."""
+    from ..amg.grid import setup_grid, grid_system
+    from ..amg.grid_fused import (setup_grid_fused, setup_grid_fused_pcg,
+                                  grid_system_fused, fused_operator)
+
     # krylov_dtype is a structured-path feature: the grid path's kernels
     # take vectors of the hierarchy's dtype only
     if krylov_dtype is not None and _torch_dtype(krylov_dtype) != dt:
         raise ValueError("krylov_dtype != dtype is only supported "
                          "on the structured path")
-    del idofs, blocks
     dims, F = grid
     prm = params or PRESETS["metric_schwarz"]
-    wanted = str(dt).replace("torch.", "")
+    wanted = _dtype_name(dt)
     if prm.dtype != wanted:
         prm = replace(prm, dtype=wanted)
     # the fused cycle (routes (a)/(b)): f32 V/W cycles with maxit=1
@@ -145,7 +335,7 @@ def solve_system(A: HostCSR, b, precond: str, sizes, idofs=None,
     prec = fp = None
     route = "c"
     if fused_ok:
-        if A.shape[0] <= FUSED_PCG_MAX_DOFS:
+        if method == "cg" and A.shape[0] <= FUSED_PCG_MAX_DOFS:
             try:
                 fp, slots, nsl = setup_grid_fused_pcg(
                     A, dims, F=F, params=prm, device=dev)
@@ -170,68 +360,5 @@ def solve_system(A: HostCSR, b, precond: str, sizes, idofs=None,
                                       pallas=pallas, device=dev)
         Aop = grid_system(A, slots, dtype=dt, pallas=pallas, device=dev)
         M = as_operator(prec)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t_setup = time.time() - t0
-    slots_t = torch.as_tensor(slots, device=dev)
-
-    def _scatter(v):
-        out = torch.zeros(nsl, dtype=dt, device=dev)
-        out[slots_t] = torch.as_tensor(np.asarray(v), dtype=dt).to(dev)
-        return out
-
-    bj = _scatter(b)
-    t0 = time.time()
-
-    def _run(bdev, ktol, miter):
-        if fp is not None:
-            r = pcg_fused(fp, bdev, tol=ktol, maxiter=miter,
-                          callback=callback, stop_type=stop_type)
-        else:
-            r = pcg(Aop, bdev, M=M, tol=ktol, maxiter=miter,
-                    callback=callback, stop_type=stop_type,
-                    **({"chunk": chunk} if chunk else {}))
-        xs = r.x.double().cpu().numpy()[slots]
-        return xs, r
-
-    if refine:
-        # f64 defect correction around the device-precision inner solve,
-        # on the same route and the same hierarchy
-        b64 = np.asarray(b, dtype=np.float64)
-        bnorm = np.linalg.norm(b64) or 1.0
-        x = np.zeros_like(b64)
-        total_iters, cond = 0, float("nan")
-        hist = []
-        pass_iters = []
-        for step in range(refine):
-            r64 = b64 - A.matvec(x)
-            rel = np.linalg.norm(r64) / bnorm
-            hist.append(rel)
-            if rel < tol:
-                break
-            d, res = _run(_scatter(r64), inner_tol, maxiter)
-            if step == 0:
-                cond = res.cond
-            total_iters += res.niters
-            pass_iters.append(int(res.niters))
-            x = x + d
-        rel = np.linalg.norm(b64 - A.matvec(x)) / bnorm
-        hist.append(rel)
-        t_solve = time.time() - t0
-        return SolveReport(
-            x=x, niters=total_iters, converged=bool(rel < tol), cond=cond,
-            r_norm=float(rel), t_setup=t_setup, t_solve=t_solve,
-            residuals=np.asarray(hist), pass_iters=tuple(pass_iters),
-            route=route)
-
-    x, res = _run(bj, tol, maxiter)
-    cond = res.cond
-    t_solve = time.time() - t0
-    for _ in range(int(timing_runs) - 1):
-        t0 = time.time()
-        _run(bj, tol, maxiter)
-        t_solve = time.time() - t0
-    return SolveReport(
-        x=x, niters=res.niters, converged=res.converged, cond=cond,
-        r_norm=float(res.residuals[-1]), t_setup=t_setup, t_solve=t_solve,
-        residuals=res.residuals, route=route)
+    _sync(dev)
+    return fp, prec, Aop, M, slots, nsl, route, time.time() - t0

@@ -12,10 +12,15 @@ conversions, SpMV, SpGEMM, transpose, triple products, block concatenation.
 Reference call sites: reference ``utils.py:95-127`` (conversions),
 reference ``emi_3d1d.py:21`` (block mats).
 
-This copy keeps only the numpy routes; the C++ helpers of the JAX package
-(SpGEMM, COO coalesce, coloring) are not ported yet.
+The C++ helpers of ``tpuamg_torch/native`` (COO coalesce, SpGEMM,
+coloring) replace the hot paths where the library is available; the numpy
+implementations are the plain route and the correctness oracle.
+``TPUAMG_NO_NATIVE`` selects the numpy SpGEMM and coloring, as in the JAX
+package.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -57,6 +62,13 @@ class HostCSR:
         cols = np.asarray(cols, dtype=np.int64)
         vals = np.asarray(vals)
         if sum_duplicates:
+            if vals.dtype == np.float64 and len(rows) > 4096:
+                # native bucket-sort coalesce (the assembly hot path)
+                from ..native import native_coo_to_csr
+                nat = native_coo_to_csr(rows, cols, vals, shape)
+                if nat is not None:
+                    indptr, out_cols, out_vals = nat
+                    return HostCSR(indptr, out_cols, out_vals, shape)
             rows, cols, vals = _coalesce_coo(rows, cols, vals, shape)
         else:
             order = np.lexsort((cols, rows))
@@ -138,9 +150,15 @@ class HostCSR:
     def matmat(self, other: "HostCSR") -> "HostCSR":
         """SpGEMM C = self @ other.
 
-        Vectorized numpy expansion (each stored a_ij expands B's row j;
-        coalesce by (row, col))."""
+        Dispatches to the native C++ Gustavson kernel (tpuamg_torch/native)
+        when available; else a vectorized numpy expansion (each stored
+        a_ij expands B's row j; coalesce by (row, col))."""
         assert self.shape[1] == other.shape[0], (self.shape, other.shape)
+        if not os.environ.get("TPUAMG_NO_NATIVE"):
+            from ..native import native_spgemm
+            out = native_spgemm(self, other)
+            if out is not None:
+                return out
         a_rows = self.rows_expanded()
         j = self.indices.astype(np.int64)
         b_start = other.indptr[j]
@@ -392,6 +410,11 @@ def greedy_color(A: HostCSR, max_colors=24) -> np.ndarray:
     cylinder-average operator) are assigned the overflow color
     ``max_colors``; the smoother builder damps those rows l1-Jacobi-style,
     which is convergent regardless of neighbors sharing the group."""
+    if not os.environ.get("TPUAMG_NO_NATIVE"):
+        from ..native import native_greedy_color
+        out = native_greedy_color(A, max_colors)
+        if out is not None:
+            return out
     n = A.shape[0]
     colors = np.full(n, -1, dtype=np.int32)
     indptr, indices = A.indptr, A.indices

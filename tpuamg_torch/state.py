@@ -2,9 +2,11 @@
 
 The functions here take the JAX package's operator objects (a ``DIA`` or
 ``PDIA``, a ``FusedVCycle``, a ``FusedPCG``, the ``MGPreconditioner`` of
-``setup_grid``) and build the port's objects from their numpy arrays and
-their plain fields: offsets, level dims, K, rows, theta, Chebyshev
-coefficients and intervals, degree, pre/post, nc, rows_c, cycle settings.
+``setup_grid`` or of the algebraic ``setup_amg``) and build the port's
+objects from their numpy arrays and their plain fields: offsets, level
+dims, K, rows, theta, Chebyshev coefficients and intervals, degree,
+pre/post, nc, rows_c, ELL planes, aggregate maps, color and Schwarz block
+data, cycle settings.
 They never import JAX: they read attributes and call ``numpy.asarray``.
 Tests use them to hold both packages to the same planes and the same
 coarse inverse, whatever each side's float32 LU would compute.
@@ -16,11 +18,14 @@ import torch
 
 from .amg.grid import ChebyshevDiagSmoother, GridLevel
 from .amg.grid_fused import CycleSpec, FusedPCG, FusedVCycle, LevelSpec
-from .amg.hierarchy import MGPreconditioner
+from .amg.hierarchy import MGLevel, MGPreconditioner
 from .amg.structured import BlockChebyshevSmoother, DiaChebyshevSmoother
 from .kernels import LANES, resolve_device
 from .sparse.dia import DIA
 from .sparse.dia_kernels import FusedChebSmoother, KernelDIA
+from .sparse.device import ELL
+from .smoothers import (ChebyshevSmoother, JacobiSmoother, L1JacobiSmoother,
+                        MetricSmoother, MulticolorGS, SchwarzSmoother)
 
 
 def to_tensor(a, device=None):
@@ -129,6 +134,65 @@ def grid_hierarchy_from_jax(prec, device=None) -> MGPreconditioner:
                         _grid_smoother(L.smoother, device),
                         to_tensor(L.mask, device), L.dims, L.F)
               for L in prec.levels]
+    return MGPreconditioner(
+        levels, to_tensor(prec.coarse_inv, device), cycle=prec.cycle,
+        maxit=prec.maxit, presmooth=prec.presmooth,
+        postsmooth=prec.postsmooth, amli_degree=prec.amli_degree,
+        max_w_work=prec.max_w_work, coarse_scaling=prec.coarse_scaling)
+
+
+def ell_from_jax(E, device=None) -> ELL:
+    """A JAX ELL -> the port's ELL on the same planes (int64 columns)."""
+    cols = to_tensor(np.asarray(E.cols).astype(np.int64), device)
+    return ELL(cols, to_tensor(E.vals, device), E.shape, E.nnz)
+
+
+def _amg_smoother(sm, device):
+    name = type(sm).__name__
+    if name == "MetricSmoother":
+        return MetricSmoother(_amg_smoother(sm.schwarz, device),
+                              None if sm.gs is None
+                              else _amg_smoother(sm.gs, device))
+    if name == "SchwarzSmoother":
+        return SchwarzSmoother(
+            [to_tensor(np.asarray(i).astype(np.int64), device)
+             for i in sm.dof_ids],
+            [to_tensor(v, device) for v in sm.inv_blocks],
+            symmetric=sm.symmetric, additive=sm.additive,
+            weight=float(sm.weight))
+    if name == "MulticolorGS":
+        return MulticolorGS(
+            [ell_from_jax(E, device) for E in sm.color_rows],
+            [to_tensor(np.asarray(i).astype(np.int64), device)
+             for i in sm.color_ids],
+            [to_tensor(d, device) for d in sm.color_invd],
+            omega=float(sm.omega), symmetric=sm.symmetric)
+    if name in ("JacobiSmoother", "L1JacobiSmoother"):
+        cls = JacobiSmoother if name == "JacobiSmoother" else \
+            L1JacobiSmoother
+        return cls(to_tensor(sm.invd, device), float(sm.omega))
+    if name == "ChebyshevSmoother":
+        return ChebyshevSmoother(to_tensor(sm.invd, device), float(sm.lmax),
+                                 float(sm.lmin), sm.degree)
+    raise TypeError(f"no port of the smoother {name}")
+
+
+def amg_hierarchy_from_jax(prec, device=None) -> MGPreconditioner:
+    """The MGPreconditioner of the JAX package's algebraic
+    ``amg.hierarchy.setup_amg`` -> the port's: the same ELL levels, UA
+    aggregate maps or SA P/R, smoother data (GS color rows/ids/inverse
+    diagonals, Schwarz dof ids and inverse blocks, Jacobi and Chebyshev
+    data), coarse inverse and cycle settings."""
+    levels = []
+    for L in prec.levels:
+        agg = None if L.agg is None else to_tensor(
+            np.asarray(L.agg).astype(np.int64), device)
+        levels.append(MGLevel(
+            ell_from_jax(L.A, device), _amg_smoother(L.smoother, device),
+            agg=agg,
+            P=None if L.P is None else ell_from_jax(L.P, device),
+            R=None if L.R is None else ell_from_jax(L.R, device),
+            nc=int(L.nc)))
     return MGPreconditioner(
         levels, to_tensor(prec.coarse_inv, device), cycle=prec.cycle,
         maxit=prec.maxit, presmooth=prec.presmooth,
