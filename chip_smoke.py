@@ -105,6 +105,25 @@ ops), adds:
      at n=64, each converged, beside the committed tables;
  19. the driver with its default -backend algebraic: -precond metric_mono
      -nrefs 4 -gamma 1e8, iterations 6/7/8/8 +- 1, H1 rates in [0.9, 1.1].
+The eighth slice stops PCG, MINRES and K5 at the crossing iterate (K5
+leaves its chunk there: every block evaluates the stop test after the
+barrier that completes an iteration's r.z), and adds the 3D-1D pipeline
+(no new kernel: the algebraic route's device work is torch ops):
+  5, 8, 9, 14, 16, 20. executed iterations beside the counted ones,
+     within the design's bound (check_executed: counted, or counted + n
+     when a chunk of n ran past the crossing and was run again), and
+     whether the target executed <= counted + 1 held;
+  8. K5 given a stop test (type 2) leaves the chunk at the crossing, held
+     against the plain chunk's exit: iterations run, rows, x;
+ 20. the 3D-1D pipeline at mesh_n 16 (radius 0.2, the default synthetic
+     neuron, input_metric.dat: CG, stop type 1, tol 1e-6) at gamma 1 and
+     1e8: python -m tpuamg_torch.problems.emi_3d1d -dump 1, then
+     run_solver_3d1d on the card, then -load_solution, in a temporary
+     directory; the card's solve against the CPU's on the same dump
+     (iterations equal, x to 1e-10 at gamma 1 and 1e-8 at gamma 1e8,
+     X3D1D_LIMIT) and the true relative residual <= 1e-6
+     (host, f64); set-up and solve seconds, ms per iteration, torch
+     operations per cycle (profiler).
 Then a JSON line {"kernels": [...]}, the nvidia-smi line, and, last, the
 result line {"ok": true, "device": {...}}.  Any failed check raises, and
 the script exits nonzero; a watchdog ends it, with a traceback and a
@@ -152,6 +171,15 @@ ALG_ITERS_1E8 = (6, 7, 8, 8)
 ALG_ITERS_N64 = {"hazmath": 39, "hazmath_Schwarz": 12, "hazmath_HEM": 8,
                  "metric": 8, "metric_hazmath": 8, "metric_mono": 8}
 N_SMALL = 64        # the seventh slice's small modes
+MESH_N = 16         # the 3D-1D pipeline's bulk mesh (phase 20)
+# Phase 20's limit on x, card against CPU, by gamma.  The card and the
+# CPU differ in summation order only, and at gamma 1e8 (cond(A) 1.6e9 at
+# mesh_n 8) one unit of rounding in each product of A and M moves the
+# crossing iterate by about 1e-9 (scripts/torch_rounding_floor.py 3d1d:
+# 3.3e-10 .. 1.1e-9 at mesh_n 8; PERF.md gives the mesh_n 16 figures).
+# The card has read 5.1e-10 .. 2.3e-9 there and 2e-14 .. 4e-14 at gamma 1
+# (PERF.md, the eighth slice), so 1e-8 is 4.4x the largest reading.
+X3D1D_LIMIT = {"1": 1e-10, "100000000": 1e-8}
 # The TPU record of refine at n=512, gamma 1e6 (V-cycle, coarse_dof 4096,
 # f32, refine 4, inner tol 2e-5): Krylov iterations per refinement pass,
 # from docs/sample_results/bidomain_2d_tpu_gamma_n512.txt (the 1e6 row),
@@ -285,11 +313,11 @@ def scatter(b, slots, nflat, dev):
 
 
 def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4,
-        n_small=N_SMALL, alg_nrefs=4):
+        n_small=N_SMALL, alg_nrefs=4, mesh_n=MESH_N):
     """All phases; returns the kernels list.  device='cpu' rehearses the
     script's own logic with the plain versions (no kernels, no counts);
-    n2, nrefs, n_small and alg_nrefs shrink the later slices' phases for
-    such a rehearsal."""
+    n2, nrefs, n_small, alg_nrefs and mesh_n shrink the later slices'
+    phases for such a rehearsal."""
     from tpuamg_torch import kernels
     from tpuamg_torch.sparse.dia_kernels import (KernelDIA, dia_spmv,
                                                  dia_spmv_plain)
@@ -497,7 +525,8 @@ def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4,
     true_rel = float(np.linalg.norm(b - A.matvec(xs)) / np.linalg.norm(b))
     it = max(res.niters, 1)
     nnz_iter = A.nnz + vc.cycle_nnz()
-    say(f"[5 pcg] gamma {GAMMA:g} iterations {res.niters} (TPU record: 49) "
+    say(f"[5 pcg] gamma {GAMMA:g} iterations {res.niters} (TPU record: 49; "
+        f"executed {res.executed} in {res.host_reads - 1} chunks) "
         f"reduction {red:.3e} true rel residual {true_rel:.3e} "
         f"cond {res.cond:.3f} | {t_pcg:.4f} s, {t_pcg / it * 1e3:.4f} "
         f"ms/iteration, nnz/iteration {nnz_iter}, nnz/s "
@@ -505,6 +534,7 @@ def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4,
     check(np.isfinite(red) and red <= 1e-10,
           f"pcg reduction {red:.3e} > 1e-10")
     check(np.all(np.isfinite(xs)), "pcg solution not finite")
+    check_executed("pcg", res.niters, res.executed)
     if on_card:
         # one cycle launch per outer SpMV: each iteration's and the
         # start's; nothing of the sequenced cycle
@@ -595,7 +625,31 @@ def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4,
     # ---- 16-19: the seventh slice, the algebraic metric-AMG path -------
     algebraic_slice(dev, A, b, n, n_small, alg_nrefs)
     say(f"[19 done] total {time.perf_counter() - t_all:.1f} s")
+
+    # ---- 20: the eighth slice, the 3D-1D pipeline ----------------------
+    for gamma in ("1", "100000000"):
+        phase20(dev, mesh_n, gamma)
+    say(f"[20 done] total {time.perf_counter() - t_all:.1f} s")
     return kern
+
+
+def check_executed(what, counted, executed, chunk=32):
+    """Executed iterations against counted ones.  What the design
+    guarantees: executed is counted, or counted + n when one chunk of n
+    iterations ran past the crossing and was run again from its saved
+    start, n at most the chunk cap and at most the iterations before it
+    (krylov.cg.pcg; K5 leaves its chunk at the crossing, so route (a)
+    runs no such chunk).  A count past that bound fails.  Whether the
+    solve met the target of at most two preconditioner applications more
+    than counted (z0's and one more: executed <= counted + 1) is
+    printed, since the chunk lengths are predicted from the data."""
+    bound = counted + min(chunk, max(counted - 1, 0))
+    check(executed <= bound,
+          f"{what}: {executed} iterations executed for {counted} counted "
+          f"(past the design's bound {bound})")
+    say(f"[executed] {what}: {executed} for {counted} counted, "
+        f"{'within' if executed <= counted + 1 else 'PAST'} the target "
+        f"counted + 1 (bound {bound})")
 
 
 def rel_err(a, b):
@@ -907,6 +961,36 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
                 + json.dumps([(kk, c, round(u, 1))
                               for kk, c, u in rows_prof[:6]]))
 
+    # K5's exit at the crossing against the plain chunk's: a stop test
+    # (type 2) between the rows with the widest gap, so that f32 noise
+    # cannot move the crossing
+    res_w = got_p[4][:chunk, 2].double().cpu().numpy()
+    gaps = [np.min(res_w[:j]) / res_w[j] for j in range(1, chunk - 1)]
+    at = 1 + int(np.argmax(gaps))
+    stop = (2, float(np.sqrt(np.min(res_w[:at]) * res_w[at])), 0.0)
+    kernels.reset_launches()
+    got_e = clone_all(pcg_chunk(fp, *start(), chunk, stop))
+    sync(dev)
+    if on_card:
+        check(dict(kernels.LAUNCHES) == {"pcg_chunk": 1},
+              f"K5 early exit: one launch, got {dict(kernels.LAUNCHES)}")
+    got_ep = clone_all(pcg_chunk_plain(fp, *start(), chunk, stop))
+    carry_k = got_e[4][chunk, 2:4].tolist()
+    carry_p = got_ep[4][chunk, 2:4].tolist()
+    check(carry_k == carry_p == [at + 1.0, 1.0],
+          f"K5 early exit: (iterations run, why) {carry_k}, plain "
+          f"{carry_p}, expected {[at + 1, 1]}")
+    e_rows, e_x, e_abs = chunk_errs(got_e, got_ep, chunk,
+                                    "plain, early exit")
+    ms_e = timed_ms(lambda: pcg_chunk(fp, *start(), chunk, stop),
+                    5 if on_card else 1, dev, warmup=1)
+    say(f"[8 K5 early exit] stop type 2 between rows {at - 1} and {at} "
+        f"(gap x{gaps[at - 1]:.2f}): the kernel ran {carry_k[0]:g} of "
+        f"{chunk} iterations (plain {carry_p[0]:g}), why {carry_k[1]:g}: "
+        f"stats rows 0-1 rel err {e_rows:.3e}, x rel err {e_x:.3e} "
+        f"max_abs_err {e_abs:.3e} | {ms_e:.4f} ms "
+        f"({ms_e / (at + 1):.4f} ms per iteration run)")
+
     # the route-(a) solve through solve_system, as the driver runs it
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -920,9 +1004,10 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
     check(rep.route == "a" and rep.converged and np.isfinite(tr)
           and tr < 1e-5, f"route (a) at n={n2}: route {rep.route}, "
           f"converged {rep.converged}, true rel residual {tr:.3e}")
-    # pcg_fused runs whole chunks and cuts the history at the crossing:
-    # the card runs more iterations than the solve counts
+    # pcg_fused's chunks stop at the crossing: one launch per chunk of
+    # up to ROUTE_A_CHUNK iterations
     chunks = -(-rep.niters // ROUTE_A_CHUNK)
+    check_executed("route (a)", rep.niters, rep.executed)
     if on_card:
         check(counts.get("pcg_chunk") == chunks
               and not any(counts.get(kk) for kk in K5_STEPS + SEQUENCED)
@@ -932,11 +1017,11 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
               f"(z0), none of {K5_STEPS + SEQUENCED} expected, got "
               f"{counts}")
         k5["launches"] = counts["pcg_chunk"]
-    ran = chunks * ROUTE_A_CHUNK
+    ran = max(rep.executed, 1)
     it = max(rep.niters, 1)
     nnz_iter = A.nnz + vc.cycle_nnz()
     say(f"[8 route a] n={n2} solve_system: iterations {rep.niters} "
-        f"(executed {ran} in {chunks} whole chunks) reduction {red:.3e} "
+        f"(executed {rep.executed} in {chunks} chunks) reduction {red:.3e} "
         f"true rel residual {tr:.3e} cond {rep.cond:.3f} | setup "
         f"{rep.t_setup:.2f} s solve {rep.t_solve:.4f} s "
         f"({rep.t_solve / it * 1e3:.3f} ms per counted iteration, "
@@ -988,7 +1073,8 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
               and counts5.get("cycle_persistent") == 1
               and not any(counts5.get(kk) for kk in K5_STEPS + SEQUENCED),
               f"route (a) at n={n512}: launches {counts5}")
-    ran5 = chunks5 * ROUTE_A_CHUNK
+    check_executed(f"route (a) at n={n512}", res5.niters, res5.executed)
+    ran5 = max(res5.executed, 1)
     x5 = res5.x.double().cpu().numpy()[slots5]
     tr5 = float(np.linalg.norm(b512 - A512.matvec(x5))
                 / np.linalg.norm(b512))
@@ -1020,8 +1106,11 @@ def slice2(dev, kern, A512, b512, n512, n2, nrefs):
                     / np.linalg.norm(b))
         itc = max(rep_c.niters, 1)
         res_c[pallas] = rep_c
+        check_executed(f"route (c) pallas={pallas}", rep_c.niters,
+                       rep_c.executed)
         say(f"[9 route c pallas={pallas}] n={n2} NL-AMLI(2): iterations "
-            f"{rep_c.niters} converged {rep_c.converged} true rel residual "
+            f"{rep_c.niters} (executed {rep_c.executed}) converged "
+            f"{rep_c.converged} true rel residual "
             f"{trc:.3e} | setup {rep_c.t_setup:.2f} s solve "
             f"{rep_c.t_solve:.3f} s ({rep_c.t_solve / itc * 1e3:.2f} "
             f"ms/iteration) | per iteration: cheb_sweep "
@@ -1417,10 +1506,11 @@ def phase14(dev, prob, A, b, dims, mesh, k6, k_pad):
     res = prob.solve(tol=1e-8, maxiter=500)
     sync(dev)
     t_solve = time.perf_counter() - t0
-    ran = max(kernels.LAUNCHES["dia_spmv_pad"] - 1, 1) if on_card else \
-        -(-res.niters // 32) * 32
-    say(f"[14 solve] iterations {res.niters} (executed {ran} in whole "
-        f"chunks of 32) {t_solve:.3f} s: {t_solve / ran * 1e3:.3f} ms per "
+    ran = max(res.executed, 1)
+    check_executed("distributed", res.niters, res.executed)
+    say(f"[14 solve] iterations {res.niters} (executed {res.executed} in "
+        f"{res.host_reads - 1} chunks) {t_solve:.3f} s: "
+        f"{t_solve / ran * 1e3:.3f} ms per "
         f"executed iteration, {t_solve / max(res.niters, 1) * 1e3:.3f} per "
         f"counted")
     if on_card:
@@ -1502,10 +1592,10 @@ def phase16(dev, A, b, n):
     prec = built[0].__self__
     true_rel = float(np.linalg.norm(b - A.matvec(rep.x)) / np.linalg.norm(b))
     ref = ALG_ITERS_1E6.get(A.shape[0])
-    # pcg runs whole chunks of 32 iterations and cuts the history at the
-    # crossing (the JAX package's semantics): the card runs more cycles
-    # than the solve counts, one more for the start
-    executed = min(-(-rep.niters // 32) * 32, 500)
+    # pcg stops at the crossing iterate; the card runs one more cycle for
+    # the start, and a chunk that ran past the crossing runs again
+    executed = rep.executed
+    check_executed(f"metric_mono at n={n}", rep.niters, executed)
     ms_it = rep.t_solve / max(rep.niters, 1) * 1e3
     ms_ex = rep.t_solve / (executed + 1) * 1e3
     levels = [(L.A.shape[0], L.A.row_width, type(L.smoother).__name__)
@@ -1659,6 +1749,94 @@ def run_algebraic_driver(dev, nrefs):
         check(0.9 <= row[3] <= 1.1 and 0.9 <= row[5] <= 1.1,
               f"driver H1 rates {row[3]:.3f}, {row[5]:.3f} outside "
               f"[0.9, 1.1]")
+
+
+class recorded_preconditioner:
+    """Within the block, solve_system's make_preconditioner is recorded:
+    .built holds what it built, so a phase runs the hierarchy the solve
+    ran."""
+
+    def __enter__(self):
+        from tpuamg_torch.problems import solve as tsolve
+        self.built, self.make = [], tsolve.make_preconditioner
+
+        def recording(*args, **kw):
+            self.built.append(self.make(*args, **kw))
+            return self.built[-1]
+        tsolve.make_preconditioner = recording
+        return self
+
+    def __exit__(self, *exc):
+        from tpuamg_torch.problems import solve as tsolve
+        tsolve.make_preconditioner = self.make
+
+
+def phase20(dev, mesh_n, gamma):
+    """The 3D-1D pipeline at one gamma through its entry points, in a
+    temporary directory (module docstring)."""
+    import os
+    import shutil
+    import tempfile
+    from tpuamg_torch.io_utils import load_system, read_solution
+    from tpuamg_torch.problems import emi_3d1d, run_solver_3d1d
+    with tempfile.TemporaryDirectory() as tmp:
+        d, o, oc = (os.path.join(tmp, k) + "/"
+                    for k in ("dump", "out", "out_cpu"))
+        t0 = time.perf_counter()
+        check(emi_3d1d.main(["-gamma", gamma, "-radius", "0.2", "-dump",
+                             "1", "-outdir", d, "-mesh_n", str(mesh_n)])
+              == 0, "emi_3d1d -dump 1 failed")
+        t_dump = time.perf_counter() - t0
+        with recorded_preconditioner() as rec:
+            t0 = time.perf_counter()
+            rep = run_solver_3d1d.main(["-indir", d, "-outdir", o],
+                                       device=dev)
+            t_run = time.perf_counter() - t0
+        prec = rec.built[0].__self__
+        ref = run_solver_3d1d.main(["-indir", d, "-outdir", oc],
+                                   device="cpu")
+        A, b, _, _ = load_system(d)
+        x = read_solution(o)
+        true_rel = float(np.linalg.norm(b - A.matvec(x))
+                         / np.linalg.norm(b))
+        err = float(np.abs(rep.x - ref.x).max() / np.abs(ref.x).max())
+        shutil.copy(os.path.join(o, "solution.txt"), d)
+        check(emi_3d1d.main(["-gamma", gamma, "-radius", "0.2",
+                             "-load_solution", d, "-mesh_n", str(mesh_n),
+                             "-outdir", d]) == 0, "-load_solution failed")
+        vtu = sorted(f for f in os.listdir(d) if f.endswith(".vtu"))
+        ops = "not measured (CPU rehearsal)"
+        if dev.type == "cuda":
+            r = torch.as_tensor(np.random.default_rng(20).standard_normal(
+                A.shape[0])).to(dev)
+            prof = profile_busy(lambda: prec.matvec(r), dev)
+            ops = "not measured: the profiler saw no device time" \
+                if prof is None else (
+                    f"{sum(c for _, c, _ in prof[0])} device operations, "
+                    f"device busy {prof[1]:.1f} us")
+        it = max(rep.niters, 1)
+        levels = [(L.A.shape[0], type(L.smoother).__name__)
+                  for L in prec.levels]
+        say(f"[20 3d1d gamma {float(gamma):g}] mesh_n {mesh_n}: dofs "
+            f"{A.shape[0]} nnz {A.nnz} | dump {t_dump:.2f} s, "
+            f"run_solver_3d1d {t_run:.2f} s (set-up {rep.t_setup:.3f} s, "
+            f"solve {rep.t_solve:.4f} s, {rep.t_solve / it * 1e3:.3f} ms per "
+            f"counted iteration, {rep.t_solve / (rep.executed + 1) * 1e3:.3f}"
+            f" per executed one and z0) | iterations {rep.niters} (CPU "
+            f"{ref.niters}; executed {rep.executed}) converged "
+            f"{rep.converged}, x vs CPU {err:.3e}, true rel residual "
+            f"{true_rel:.3e} | one cycle: {ops} | levels {levels} | VTU "
+            f"{vtu}")
+        check(rep.converged and rep.niters == ref.niters,
+              f"3d1d gamma {gamma}: card {rep.niters} vs CPU {ref.niters} "
+              f"iterations, converged {rep.converged}")
+        check(np.isfinite(err) and err <= X3D1D_LIMIT[gamma],
+              f"3d1d gamma {gamma}: x card vs CPU {err:.3e} > "
+              f"{X3D1D_LIMIT[gamma]:g}")
+        check(np.isfinite(true_rel) and true_rel <= 1e-6,
+              f"3d1d gamma {gamma}: true rel residual {true_rel:.3e}")
+        check_executed(f"3d1d gamma {gamma}", rep.niters, rep.executed)
+        check(len(vtu) == 2, f"3d1d -load_solution wrote {vtu}")
 
 
 def route_pair(fp, bk, vc, A, b, slots, n, dev, its_a, plain, ms_a=None):

@@ -5,7 +5,8 @@ Each world (1, 2, 4 and 8 ranks) is spawned once for the module, all
 side by side; its ranks run every case of that world and write what they
 got to a file each.  The ranks import torch and tpuamg_torch only: JAX
 and the JAX package are imported inside the fixtures that compute the
-references.
+references.  The JAX solves run one PCG iteration per chunk (chunk=1),
+so that, as the port's, they return the crossing iterate.
 
 * n=16, dims (17, 17), F=2, gamma 1e6, f32, V-cycle, coarse_dof 60, tol
   1e-6, on 1, 2 and 8 ranks, against the JAX distributed_grid_solve
@@ -288,12 +289,20 @@ def worlds(systems, tmp_path_factory):
 @pytest.fixture(scope="module")
 def jax_solves(systems):
     """The JAX distributed_grid_solve (pallas=False) on as many virtual
-    devices as each world has ranks."""
+    devices as each world has ranks, its pcg given chunk=1: its x is then
+    the crossing iterate, as the port's is."""
+    from functools import partial
     import jax.numpy as jnp
     from tpuamg.config import AMGParameters as JParams
     from tpuamg.dist import device_mesh as jmesh
-    from tpuamg.dist.solve import distributed_grid_solve as jsolve
+    from tpuamg.dist import solve as jdist
+    from tpuamg.krylov import pcg as jpcg
     from tpuamg.sparse import HostCSR
+
+    def jsolve(*a, **kw):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jdist, "pcg", partial(jpcg, chunk=1))
+            return jdist.distributed_grid_solve(*a, **kw)
 
     def jcsr(A):
         return HostCSR(A.indptr, A.indices, A.data, A.shape)

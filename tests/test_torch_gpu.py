@@ -693,9 +693,91 @@ def test_pcg_fused_kernel_crosses_tolerance_mid_chunk(cycle):
     for name in ("pcg_rz", "pcg_pq", "pcg_xr", "pcg_finish"):
         assert kernels.LAUNCHES[name] == 0, name
     assert kernels.LAUNCHES["vcycle"] == 1          # z0 only
+    assert got.executed == got.niters               # no chunk runs past
     np.testing.assert_allclose(got.residuals[:2], ref.residuals[:2],
                                rtol=1e-4)
     np.testing.assert_allclose(got.alphas[:2], ref.alphas[:2], rtol=1e-4)
+
+
+def _stop_between(rows, kind, at):
+    """A stop test of `kind` that row `at` meets and row at - 1 does not:
+    the threshold halfway (geometrically) between their tested values,
+    so f32 noise between two chunks cannot move the crossing."""
+    def tested(row):
+        if kind == 2:
+            return row[2]
+        if kind == 1:
+            return row[3]
+        return row[3] / max(row[4], 1e-300)
+    a, b = tested(rows[at - 1]), tested(rows[at])
+    assert b < a, (kind, a, b)
+    mid = float(np.sqrt(a * b))
+    return (kind, 0.0, mid) if kind == 3 else (kind, mid, 0.0)
+
+
+@pytest.mark.parametrize("kind", [1, 2, 3])
+@pytest.mark.parametrize("cycle", ["v", "w"])
+def test_pcg_chunk_kernel_stops_at_the_crossing(cycle, kind):
+    """K5 given a stop test leaves the chunk at the crossing, as the plain
+    chunk does: the same iterations run and reason in the carry row, the
+    rows up to the crossing, x, and a second chunk that continues from
+    either (p from the buffer a whole chunk ends in, rz carried)."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg.grid_fused import pcg_chunk, pcg_chunk_plain
+    dev = _card()
+    fp, bk = _pcg_setup(dev, cycle, gamma=1.0)
+    start = _chunk_start(fp, bk)
+    chunk, at = 12, 4
+    whole = pcg_chunk_plain(fp, *start(), chunk)[4].double().cpu().numpy()
+    stop = _stop_between(whole[:, :5], kind, at)
+    kernels.reset_launches()
+    got = _clone_all(pcg_chunk(fp, *start(), chunk, stop))
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"pcg_chunk": 1}
+    ref = _clone_all(pcg_chunk_plain(fp, *start(), chunk, stop))
+    st, stp = (t.double().cpu().numpy() for t in (got[4], ref[4]))
+    assert tuple(stp[chunk, 2:4]) == (at + 1, 1)
+    assert tuple(st[chunk, 2:4]) == (at + 1, 1)
+    assert np.all(st[at + 1:chunk] == 0)
+    np.testing.assert_allclose(st[:at + 1, :5], stp[:at + 1, :5], rtol=1e-3)
+    _check_chunks(got, ref, chunk)
+    # a second chunk from each state, whole
+    x, r, p, z, s1 = got
+    xp, rp, pp, zp, s1p = ref
+    nxt = pcg_chunk(fp, x.clone(), r.clone(), p.clone(), z.clone(),
+                    s1[chunk, 1:2].clone(), 3)[4].double().cpu().numpy()
+    nxtp = pcg_chunk_plain(fp, xp.clone(), rp.clone(), pp.clone(),
+                           zp.clone(), s1p[chunk, 1:2].clone(), 3)[4]
+    np.testing.assert_allclose(nxt[:3, :5],
+                               nxtp[:3, :5].double().cpu().numpy(),
+                               rtol=1e-3)
+
+
+def test_pcg_fused_kernel_stops_at_the_crossing():
+    """pcg_fused through K5 counts what the plain chunk counts, runs one
+    cycle per counted iteration (plus z0's) and returns the crossing
+    iterate, for each stop type."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg.grid_fused import pcg_fused, pcg_chunk_plain
+    dev = _card()
+    fp, bk = _pcg_setup(dev, "w", gamma=1.0)
+    for kind in (1, 2, 3):
+        run_kernel = fp.run_chunk
+        fp.run_chunk = lambda *a: pcg_chunk_plain(fp, *a)
+        ref = pcg_fused(fp, bk, tol=2e-5, maxiter=60, chunk=32,
+                        stop_type=kind)
+        fp.run_chunk = run_kernel
+        kernels.reset_launches()
+        got = pcg_fused(fp, bk, tol=2e-5, maxiter=60, chunk=32,
+                        stop_type=kind)
+        torch.cuda.synchronize()
+        assert got.converged and ref.converged
+        assert abs(got.niters - ref.niters) <= 1, (kind, got.niters,
+                                                   ref.niters)
+        assert got.executed == got.niters
+        assert kernels.LAUNCHES["pcg_chunk"] == 1
+        assert kernels.LAUNCHES["vcycle"] == 1          # z0 only
+        assert _rel(got.x, ref.x) < 1e-3
 
 
 def test_pcg_chunk_kernel_is_deterministic():
@@ -967,6 +1049,14 @@ def test_algebraic_on_card_matches_cpu(what):
     ("metric_mono", "cg"), ("hazmath", "cg"), ("hazmath_Schwarz", "cg"),
     ("diag", "cg"), ("metric_mono", "minres"), ("metric_mono", "gmres")])
 def test_algebraic_solve_on_card_matches_cpu(precond, method):
+    """The card's solve against the CPU's: equal iterations, and x (the
+    crossing iterate) to 1e-8, or to 5e-7 for hazmath, whose
+    43-iteration CG at tol 1e-8 moves its crossing iterate by 1.7e-8 ..
+    1.1e-7 under one unit of rounding in each product of A and M
+    (scripts/torch_rounding_floor.py bidomain hazmath, CPU and card); the
+    card differs from the CPU in summation order.  For hazmath the iterate at the end
+    of the crossing's 32-iteration chunk (an uncut run, tol 0) is held
+    to 1e-8 too."""
     from tpuamg_torch.config import PRESETS
     from tpuamg_torch.problems.solve import solve_system
     from tpuamg_torch.sparse.host import extract_diag_blocks
@@ -988,4 +1078,42 @@ def test_algebraic_solve_on_card_matches_cpu(precond, method):
         assert err <= 1e-4, err
     else:
         assert got.niters == ref.niters, (got.niters, ref.niters)
+        assert err <= (5e-7 if precond == "hazmath" else 1e-8), err
+    if precond == "hazmath":
+        kw.update(tol=0.0, maxiter=-(-ref.niters // 32) * 32)
+        got = solve_system(A, b, precond, sizes, device=dev, **kw)
+        ref = solve_system(A, b, precond, sizes, device="cpu", **kw)
+        assert got.niters == ref.niters == kw["maxiter"]
+        err = np.abs(got.x - ref.x).max() / np.abs(ref.x).max()
         assert err <= 1e-8, err
+
+
+# ---------------------------------------------------------------------------
+# The 3D-1D pipeline: dump -> run_solver_3d1d on the card -> solution.txt
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("gamma", ["1", "100000000"])
+def test_3d1d_pipeline_on_card_matches_cpu(tmp_path, gamma):
+    """mesh_n 8, radius 0.2, the default synthetic neuron and
+    input_metric.dat (CG, stop type 1, tol 1e-6): the card's solve
+    against the CPU's on the same dump.  x to 1e-10 at gamma 1 and 1e-8
+    at gamma 1e8: there one unit of rounding in each product of A and M
+    moves x by 3.3e-10 .. 1.1e-9 on the CPU (cond(A) 1.6e9;
+    scripts/torch_rounding_floor.py 3d1d 8), and the card differs from
+    the CPU in summation order."""
+    from tpuamg_torch.io_utils import load_system, read_solution
+    from tpuamg_torch.problems import emi_3d1d, run_solver_3d1d
+    dev = _card()
+    d, o, oc = (str(tmp_path / k) + "/" for k in ("d", "o", "oc"))
+    assert emi_3d1d.main(["-gamma", gamma, "-radius", "0.2", "-dump", "1",
+                          "-outdir", d, "-mesh_n", "8"]) == 0
+    got = run_solver_3d1d.main(["-indir", d, "-outdir", o], device=dev)
+    ref = run_solver_3d1d.main(["-indir", d, "-outdir", oc], device="cpu")
+    assert got.converged and ref.converged
+    assert got.niters == ref.niters <= 25, (got.niters, ref.niters)
+    assert got.executed <= got.niters + 1
+    err = np.abs(got.x - ref.x).max() / np.abs(ref.x).max()
+    assert err <= (1e-10 if gamma == "1" else 1e-8), err
+    A, b, _, _ = load_system(d)
+    x = read_solution(o)
+    assert np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b) <= 1e-6

@@ -29,6 +29,10 @@ import tpuamg_torch.amg.aggregation, tpuamg_torch.smoothers
 import tpuamg_torch.smoothers.relaxation, tpuamg_torch.smoothers.schwarz
 import tpuamg_torch.smoothers.schwarz_setup
 import tpuamg_torch.krylov.minres, tpuamg_torch.krylov.gmres
+import tpuamg_torch.config, tpuamg_torch.io_utils.datfile
+import tpuamg_torch.io_utils.dump, tpuamg_torch.io_utils.vtk
+import tpuamg_torch.fem.dofs, tpuamg_torch.fem.coupling
+import tpuamg_torch.problems.emi_3d1d, tpuamg_torch.problems.run_solver_3d1d
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'tpuamg'))
 print('BAD', bad)

@@ -27,6 +27,8 @@ def _spd(n=200, seed=0):
 
 @pytest.mark.parametrize("stop_type", [1, 2, 3])
 def test_pcg_diagnostics_match_jax(stop_type):
+    """The JAX pcg with chunk=1 returns the crossing iterate, as the
+    port's pcg does with any chunk."""
     A, b = _spd()
     d = 1.0 / np.diag(A)
     seen = []
@@ -36,7 +38,7 @@ def test_pcg_diagnostics_match_jax(stop_type):
               callback=lambda i, x, r: seen.append(i))
     ref = jax_pcg(lambda v: jnp.asarray(A) @ v, jnp.asarray(b),
                   M=lambda r: jnp.asarray(d) * r, tol=1e-8, maxiter=300,
-                  chunk=7, stop_type=stop_type)
+                  chunk=1, stop_type=stop_type)
     assert isinstance(res, CGResult) and res.converged and ref.converged
     assert res.niters == ref.niters
     assert seen == list(range(1, res.niters + 1))
@@ -92,3 +94,130 @@ def test_slice_pcg_gamma_1e10():
     A, b, vc, slots, Aop, bk, _ = _slice(1e10)
     res = pcg(Aop, bk, M=vc, tol=1e-5, maxiter=60)
     assert res.converged and res.niters <= 25, res.niters
+
+
+# ---------------------------------------------------------------------------
+# The crossing iterate: the solve stops at the first iteration that meets
+# the stop test, with the histories of an uncut run, and runs M at most
+# twice more than it counts
+# ---------------------------------------------------------------------------
+
+def _counting(fn):
+    """fn wrapped to count its calls (calls[0])."""
+    calls = [0]
+
+    def wrapped(*a):
+        calls[0] += 1
+        return fn(*a)
+    return wrapped, calls
+
+
+def _same_history(got, ref, prefix=False):
+    """got's histories equal ref's (prefix: ref's cut to got's length),
+    and else its count and cond too."""
+    for key in ("residuals", "true_residuals", "alphas", "betas"):
+        g = getattr(got, key)
+        np.testing.assert_array_equal(g, getattr(ref, key)[:len(g)])
+    if not prefix:
+        assert got.niters == ref.niters and got.converged == ref.converged
+        assert got.cond == ref.cond
+
+
+def _check_crossing(solve, maxiter, chunk=32):
+    """solve(chunk=, tol=None, maxiter=, M counting) -> (result, calls of
+    M).  The run against chunk=1 (the exact crossing by construction),
+    and against an uncut run (tol 0) to the end of the crossing's chunk:
+    its histories are those whole chunks recorded, and its x the iterate
+    they returned."""
+    got, calls = solve(chunk=chunk)
+    one, _ = solve(chunk=1)
+    assert got.converged
+    _same_history(got, one)
+    x, x1 = got.x.double(), one.x.double()
+    assert float((x - x1).abs().max()) <= 1e-12 * float(x1.abs().max())
+    assert calls <= got.niters + 2, (calls, got.niters)
+    assert got.executed + 1 == calls and got.host_reads >= 2
+    end = min(-(-got.niters // chunk) * chunk, maxiter)
+    full, _ = solve(chunk=chunk, tol=0.0, maxiter=end)
+    assert full.niters == end and not full.converged
+    _same_history(got, full, prefix=True)
+    if end > got.niters:
+        assert not torch.equal(got.x, full.x)
+    return got
+
+
+@pytest.mark.parametrize("stop_type", [1, 2, 3])
+@pytest.mark.parametrize("tol", [1e-6, 1e-10])
+def test_pcg_returns_the_crossing_iterate(stop_type, tol):
+    A, b = _spd()
+    d = torch.from_numpy(1.0 / np.diag(A))
+    At, bt = torch.from_numpy(A), torch.from_numpy(b)
+
+    def solve(chunk, tol=tol, maxiter=300):
+        M, calls = _counting(lambda r: d * r)
+        res = pcg(lambda v: At @ v, bt, M=M, tol=tol, maxiter=maxiter,
+                  chunk=chunk, stop_type=stop_type)
+        return res, calls[0]
+    _check_crossing(solve, 300)
+
+
+def test_pcg_crossing_on_the_slice():
+    """The fused f32 cycle as M (route (b) at n=16)."""
+    A, b, vc, slots, Aop, bk, _ = _slice(1e6)
+
+    def solve(chunk, tol=1e-6, maxiter=60):
+        M, calls = _counting(fused_operator(vc))
+        return pcg(Aop, bk, M=M, tol=tol, maxiter=maxiter,
+                   chunk=chunk), calls[0]
+    got = _check_crossing(solve, 60)
+    assert got.niters > 4
+
+
+@pytest.mark.parametrize("stop_type", [1, 2, 3])
+def test_pcg_fused_plain_chunk_returns_the_crossing_iterate(monkeypatch,
+                                                            stop_type):
+    """pcg_fused over the plain chunk, which stops inside the chunk at
+    the crossing: chunk=1's counts, histories, cond and x, the uncut
+    run's histories, and one cycle per counted iteration plus z0's."""
+    from tpuamg_torch.amg import grid_fused as gf
+    A, b, vc, slots, Aop, bk, prm = _slice(1e6)
+    fp = gf.FusedPCG(vc, Aop)
+
+    def solve(chunk, tol=1e-6, maxiter=60):
+        cyc, calls = _counting(gf.vcycle_plain)
+        z0, calls0 = _counting(gf.vcycle)
+        monkeypatch.setattr(gf, "vcycle_plain", cyc)
+        monkeypatch.setattr(gf, "vcycle", z0)
+        res = gf.pcg_fused(fp, bk, tol=tol, maxiter=maxiter, chunk=chunk,
+                           stop_type=stop_type)
+        return res, calls[0] + calls0[0]
+    got = _check_crossing(solve, 60, chunk=8)
+    assert got.executed == got.niters
+
+
+def test_pcg_chunk_plain_stops_at_the_crossing():
+    """The plain chunk given a stop test: the carry row says how many
+    iterations ran and why, rows past them stay zero, and rz_T is the
+    crossing iterate's r.z."""
+    from tpuamg_torch.amg.grid_fused import FusedPCG, pcg_chunk_plain
+    A, b, vc, slots, Aop, bk, _ = _slice(1e6)
+    fp = FusedPCG(vc, Aop)
+    bm = bk * vc.mask_flat
+    z0 = vc.matvec(bm)
+
+    def start():
+        return (torch.zeros_like(bm), bm.clone(), torch.zeros_like(bm),
+                z0.clone(), torch.tensor([-1.0]))
+    whole = pcg_chunk_plain(fp, *start(), 12)[4].double().numpy()
+    res0 = float(torch.dot(bm, z0)) ** 0.5
+    thr = float(whole[4, 2]) + 1e-12 * res0     # met first at row 4
+    x, r, p, z, st = pcg_chunk_plain(fp, *start(), 12, (2, thr, 0.0))
+    st = st.double().numpy()
+    assert st[12, 2] == 5 and st[12, 3] == 1
+    np.testing.assert_array_equal(st[:5, :5], whole[:5, :5])
+    assert np.all(st[5:12] == 0)
+    # (rz_T, rz_last): the crossing iterate's r.z and iteration 4's
+    np.testing.assert_allclose(st[12, 0], float(torch.dot(r, z)), rtol=1e-6)
+    assert np.sqrt(np.float32(abs(st[12, 0]))) == np.float32(st[4, 2])
+    np.testing.assert_allclose(np.sqrt(abs(st[12, 1])), st[3, 2], rtol=1e-6)
+    assert np.all(whole[12, 2:4] == (12, 0))

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 from dataclasses import dataclass
 
 import numpy as np
@@ -725,31 +726,73 @@ def grid_system_fused(A_host: HostCSR, slots, nflat, dtype=torch.float32,
 # stats rows follow the JAX package's layout: row it = (alpha, beta,
 # sqrt|rz|, ||r||, ||x||, 0...) with row it's beta and sqrt|rz| those of
 # the NEXT r.z (the last row's from one more r.z after the loop), and
-# row chunk = (rz_T, rz_last), which carries rz across chunks.
+# row chunk = (rz_T, rz_last, iterations run, why), which carries rz across
+# chunks and says where the chunk stopped: why = 0 ran it whole, 1 met the
+# stop test, 2 found sqrt|rz| non-finite.  A chunk given a stop test (type
+# 1/2/3 and threshold, _stop_args) stops at the first iteration that meets
+# it, with x that iteration's iterate.
 
 _TINY32 = 1e-30
 STATS_LANES = LANES
 MAX_PARTS = 512     # per-block partial sums of a pcg.cu reduction
 
 
-def pcg_chunk_plain(fp: "FusedPCG", x, r, p, z, rz_prev, chunk,
+def _stop_args(stop):
+    """(type, threshold, tol) of a chunk's stop test; None = none (type 0,
+    the whole chunk).  The threshold is tol*||b|| for type 1, tol*res0 for
+    type 2, unused for type 3 (||r|| <= tol max(||x||, 1e-300))."""
+    if stop is None:
+        return 0, 0.0, 0.0
+    kind, thr, tol = stop
+    if kind not in (1, 2, 3):
+        raise ValueError(f"stop type {kind} is not 1, 2 or 3")
+    return int(kind), float(thr), float(tol)
+
+
+def _stopped(kind, thr, tol, row):
+    """The chunk's exit test on one stats row (float32 values, compared
+    in float64 as the persistent kernel compares them): 0 go on, 1 met,
+    2 non-finite."""
+    res = float(row[2])
+    if not np.isfinite(res):
+        return 2
+    if kind == 2:
+        return int(res <= thr)
+    rt = float(row[3])
+    if kind == 1:
+        return int(rt <= thr)
+    return int(rt <= tol * max(float(row[4]), 1e-300))
+
+
+def pcg_chunk_plain(fp: "FusedPCG", x, r, p, z, rz_prev, chunk, stop=None,
                     cycle=None):
     """One chunk in torch ops on the kernel-flat layout (any device).
-    x and r are updated in place; returns (x, r, p, z, stats).  cycle(vc,
-    r) -> z is the preconditioner, vcycle_plain by default."""
+    x and r are updated in place; returns (x, r, p, z, stats).  stop:
+    (type, threshold, tol) ends the chunk at the crossing (_stop_args),
+    None runs it whole.  cycle(vc, r) -> z is the preconditioner,
+    vcycle_plain by default."""
     vc = fp.vc
     Q = fp.Q
+    kind, thr, tol = _stop_args(stop)
     cycle = vcycle_plain if cycle is None else cycle
     stats = torch.zeros((chunk + 1, STATS_LANES), dtype=torch.float32,
                         device=x.device)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     rz_last = rz_prev.reshape(())
-    for it in range(chunk):
+    ran, why = chunk, 0
+    for it in range(chunk + 1):
         rz = torch.dot(r, z)
         beta = torch.where(rz_last > 0, rz / (rz_last + _TINY32), zero)
         if it:
             stats[it - 1, 1] = beta
             stats[it - 1, 2] = torch.sqrt(rz.abs())
+            if kind:
+                why = _stopped(kind, thr, tol, stats[it - 1, :5].tolist())
+                if why:
+                    ran = it
+                    break
+        if it == chunk:
+            break
         p = z + beta * p
         q = dia_spmv_plain(Q.offsets, Q.planes, p)
         alpha = rz / (torch.dot(p, q) + _TINY32)
@@ -760,12 +803,10 @@ def pcg_chunk_plain(fp: "FusedPCG", x, r, p, z, rz_prev, chunk,
         stats[it, 4] = torch.linalg.vector_norm(x)
         z = cycle(vc, r)
         rz_last = rz
-    rz_t = torch.dot(r, z)
-    stats[chunk - 1, 1] = torch.where(rz_last > 0,
-                                      rz_t / (rz_last + _TINY32), zero)
-    stats[chunk - 1, 2] = torch.sqrt(rz_t.abs())
-    stats[chunk, 0] = rz_t
+    stats[chunk, 0] = rz
     stats[chunk, 1] = rz_last
+    stats[chunk, 2] = ran
+    stats[chunk, 3] = why
     return x, r, p, z, stats
 
 
@@ -804,7 +845,7 @@ def _chunk_inputs(fp: "FusedPCG", x, r, p, z, rz_prev, chunk, grid=0):
     kernels.require(fp.Q.planes, "Q planes", dtype=torch.float32,
                     numel=len(fp.Q.offsets) * n, device=dev)
     w = fp._work
-    if w is None or w.chunk != chunk or w.grid < grid:
+    if w is None or w.chunk < chunk or w.grid < grid:
         w = fp._work = _PCGWork(n, chunk, dev, grid)
     zb = vc._x[0]                    # the cycle writes z here
     if z.data_ptr() != zb.data_ptr():
@@ -865,11 +906,16 @@ def pcg_chunk_sequenced(fp: "FusedPCG", x, r, p, z, rz_prev, chunk):
     return x, r, w.p[cur], zb, w.stats
 
 
-# the host argument vector of tpuamg_pcg_persistent, in its order
+# the host argument vector of tpuamg_pcg_persistent, in its order (thr
+# and tol: the bits of float64 values)
 _PERSISTENT_ARGS = ("levels", "nlevels", "ops", "nops", "Q_planes", "x", "r",
                     "p0", "p1", "q", "z", "n", "parts", "rz_prev", "stats",
                     "chunk", "T", "bc", "xc", "partial", "rows_c", "nc",
-                    "nsplit")
+                    "nsplit", "stop", "thr", "tol")
+
+
+def _f64_bits(v):
+    return struct.unpack("<q", struct.pack("<d", float(v)))[0]
 
 
 # the host argument vector of tpuamg_cycle_persistent, in its order
@@ -974,9 +1020,10 @@ def _cycle_persistent(vc: "FusedVCycle", b, _grid=None, _ops=None):
 
 
 def _pcg_chunk_persistent(fp: "FusedPCG", x, r, p, z, rz_prev, chunk,
-                          _grid=None):
+                          stop=None, _grid=None):
     """One chunk as one cooperative launch; _grid overrides the grid (a
     card test asks for one too large to be co-resident)."""
+    kind, thr, tol = _stop_args(stop)
     vc = fp.vc
     Q = fp.Q
     spec = vc.spec
@@ -996,7 +1043,8 @@ def _pcg_chunk_persistent(fp: "FusedPCG", x, r, p, z, rz_prev, chunk,
         stats=w.stats.data_ptr(), chunk=chunk, T=vc.T.data_ptr(),
         bc=vc._bc.data_ptr(), xc=vc._xc.data_ptr(),
         partial=prog.partial.data_ptr(), rows_c=spec.rows_c, nc=spec.nc,
-        nsplit=prog.nsplit)
+        nsplit=prog.nsplit, stop=kind, thr=_f64_bits(thr),
+        tol=_f64_bits(tol))
     args = (ctypes.c_longlong * len(_PERSISTENT_ARGS))(
         *(int(vals[k]) for k in _PERSISTENT_ARGS))
     rc = kernels.lib().tpuamg_pcg_persistent(
@@ -1009,18 +1057,19 @@ def _pcg_chunk_persistent(fp: "FusedPCG", x, r, p, z, rz_prev, chunk,
             f"of {grid} blocks x 512 threads ({sms} SMs x {per_sm} "
             f"resident blocks per SM)")
     kernels.LAUNCHES["pcg_chunk"] += 1
-    return x, r, w.p[(cur + chunk) % 2], zb, w.stats
+    return x, r, w.p[(cur + chunk) % 2], zb, w.stats[:chunk + 1]
 
 
-def pcg_chunk(fp: "FusedPCG", x, r, p, z, rz_prev, chunk):
+def pcg_chunk(fp: "FusedPCG", x, r, p, z, rz_prev, chunk, stop=None):
     """One chunk: the persistent kernel K5 on CUDA tensors (one launch,
     the cycle inside), the plain version on CPU tensors.  x and r are
     updated in place; p and z may come back in the runner's own buffers
-    (valid until its next chunk).  Returns (x, r, p, z, stats (chunk + 1,
-    128) float32 on the device)."""
+    (valid until its next chunk).  stop: (type, threshold, tol) ends the
+    chunk at the crossing (_stop_args), None runs it whole.  Returns (x,
+    r, p, z, stats (chunk + 1, 128) float32 on the device)."""
     if x.device.type == "cpu":
-        return pcg_chunk_plain(fp, x, r, p, z, rz_prev, chunk)
-    return _pcg_chunk_persistent(fp, x, r, p, z, rz_prev, chunk)
+        return pcg_chunk_plain(fp, x, r, p, z, rz_prev, chunk, stop)
+    return _pcg_chunk_persistent(fp, x, r, p, z, rz_prev, chunk, stop)
 
 
 class FusedPCG:
@@ -1046,8 +1095,8 @@ class FusedPCG:
         """The cycle's op program: vc's own (vc.program())."""
         return self.vc.program()
 
-    def run_chunk(self, x, r, p, z, rz_prev, chunk):
-        return pcg_chunk(self, x, r, p, z, rz_prev, int(chunk))
+    def run_chunk(self, x, r, p, z, rz_prev, chunk, stop=None):
+        return pcg_chunk(self, x, r, p, z, rz_prev, int(chunk), stop)
 
 
 def pcg_fused(fp: FusedPCG, b, tol=1e-8, maxiter=500, chunk=32,
@@ -1055,9 +1104,11 @@ def pcg_fused(fp: FusedPCG, b, tol=1e-8, maxiter=500, chunk=32,
     """PCG with the chunked runner; mirrors krylov.cg.pcg's host loop, its
     diagnostics contract (CGResult) and stop types.  b and the returned x
     are in the kernel-flat layout (length vc.nflat).  The host reads the
-    stats rows once per chunk and cuts the history at the first crossing
-    or non-finite residual; x is the iterate at the end of that chunk."""
-    from ..krylov.cg import CGResult, _TINY
+    stats rows once per chunk.  Each chunk is given the solve's stop test
+    and stops at its crossing (or at a non-finite residual); the host cuts
+    the history at the count the chunk reports, and x is the crossing
+    iterate."""
+    from ..krylov.cg import CGResult
     vc = fp.vc
     b = b.to(torch.float32)
     bm = b * vc.mask_flat
@@ -1075,37 +1126,33 @@ def pcg_fused(fp: FusedPCG, b, tol=1e-8, maxiter=500, chunk=32,
     true_hist = [rnorm0]
     norm_b = float(init[2]) if stop_type == 1 else 0.0
     alphas, betas = [], []
-    k = 0
+    k = executed = 0
+    reads = 1
     if stop_type == 1:
         converged = rnorm0 <= tol * norm_b or norm_b == 0.0
     else:
         converged = res0 == 0.0
     rz_prev = torch.full((1,), -1.0, dtype=torch.float32, device=b.device)
-
-    def _crossed(o):
-        if stop_type == 1:
-            return o[:, 3] <= tol * norm_b
-        if stop_type == 3:
-            return o[:, 3] <= tol * np.maximum(o[:, 4], _TINY)
-        return o[:, 2] <= tol * res0
+    kind = stop_type if stop_type in (1, 3) else 2
+    stop = (kind, tol * (norm_b if kind == 1 else res0), tol)
 
     while not converged and k < maxiter:
-        x, r, p, z, stats = fp.run_chunk(x, r, p, z, rz_prev, chunk)
+        n_run = min(chunk, maxiter - k)
+        x, r, p, z, stats = fp.run_chunk(x, r, p, z, rz_prev, n_run, stop)
         o = stats.double().cpu().numpy()   # the one host read per chunk
-        rz_prev = stats[chunk, 1:2].clone()
-        o = o[:chunk, :5]
-        cross = _crossed(o)
-        hit = np.flatnonzero(cross | ~np.isfinite(o[:, 2]))
-        take = int(hit[0]) + 1 if len(hit) else chunk
-        take = min(take, maxiter - k)
+        reads += 1
+        rz_prev = stats[n_run, 1:2].clone()
+        ran, why = int(o[n_run, 2]), int(o[n_run, 3])
+        o = o[:n_run, :5]
+        # the chunk's own count: the kernel's test, not a second one
+        take, converged, stopped = ran, why == 1, why != 0
+        executed += ran
         alphas.extend(o[:take, 0].tolist())
         betas.extend(o[:take, 1].tolist())
         res_hist.extend(o[:take, 2].tolist())
         true_hist.extend(o[:take, 3].tolist())
         k += take
-        converged = len(hit) > 0 and np.isfinite(o[hit[0], 2]) \
-            and bool(cross[hit[0]])
-        if len(hit) and not converged:
+        if stopped and not converged:
             break
     res = np.asarray(res_hist)
     true = np.asarray(true_hist)
@@ -1114,7 +1161,8 @@ def pcg_fused(fp: FusedPCG, b, tol=1e-8, maxiter=500, chunk=32,
             callback(i, None, true[i])
     return CGResult(x=x, niters=k, converged=bool(converged),
                     residuals=res, true_residuals=true,
-                    alphas=np.asarray(alphas), betas=np.asarray(betas))
+                    alphas=np.asarray(alphas), betas=np.asarray(betas),
+                    executed=executed, host_reads=reads)
 
 
 def setup_grid_fused_pcg(A_host: HostCSR, dims, F=1, mask=None,

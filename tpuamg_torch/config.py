@@ -1,4 +1,5 @@
-"""Configuration dataclasses: AMG parameters and their presets.
+"""Configuration dataclasses: AMG parameters, their presets and the outer
+Krylov configuration.
 
 Copy of the JAX package's ``config.py``: the same fields, defaults and
 canned presets, keyed by the names the drivers use, so a parameter set
@@ -93,4 +94,17 @@ PRESETS = {
     "metric_mono_default": parameters_metric_mono_default,
     "metric_3d1d_hrobust": parameters_metric_3d1d_hrobust,
 }
+
+
+@dataclass(frozen=True)
+class SolverConfig:
+    """Outer Krylov configuration (cbc.block ConjGrad surface,
+    reference bidomain_2d.py:205)."""
+    method: str = "cg"                # cg | minres | gmres
+    tolerance: float = 1e-8
+    maxiter: int = 500
+    restart: int = 30                 # gmres only
+    # HAZmath linear_stop_type codes (input_metric.dat:54):
+    # 1 ||r||/||b||, 2 ||r||_B/||r0||_B (preconditioned), 3 ||r||/||x||
+    stop_type: int = 2
 

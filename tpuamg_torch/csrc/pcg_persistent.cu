@@ -18,6 +18,13 @@
 // layouts, the fused ops and their traps), with r as level 0's
 // right-hand side.
 //
+// The chunk stops at the crossing: the host passes the solve's stop test
+// (type and threshold, pcg_fused's), and after the barrier that completes
+// an iteration's r.z every block evaluates it on the same reduced values,
+// so all blocks leave the loop together; a non-finite sqrt|r.z| also ends
+// the chunk.  Block 0 writes the iterations run and the reason into the
+// carry row.  Type 0 runs the whole chunk (the JAX package's semantics).
+//
 // The PCG body keeps pcg.cu's arithmetic: rz = r.z; beta = rz / rz_prev
 // (0 while rz_prev <= 0); p_new = z + beta p_old with q = Q p_new
 // recomputed at the neighbouring offsets (p double-buffered: blocks read
@@ -26,7 +33,8 @@
 // right-hand side.  After the last iteration one more r.z closes the
 // stats rows, whose layout is pcg.cu's: row it = (alpha, beta, sqrt|rz|,
 // |r|, |x|) with row it's beta and sqrt|rz| those of the next r.z, and
-// row chunk = (rz_T, rz_last).  The scalars stay in registers: every
+// row chunk = (rz_T, rz_last, iterations run, why: 0 none, 1 crossed,
+// 2 non-finite).  The scalars stay in registers: every
 // block re-reduces the per-block partials in one fixed order, so all
 // blocks hold the same bits (no float atomics).  The bits depend on the
 // grid size, and are the same from run to run on one grid.
@@ -46,6 +54,8 @@
 //  - the launch is cooperative: a grid larger than can be co-resident
 //    fails (cudaErrorCooperativeLaunchTooLarge) and the wrapper raises;
 //    there is no fallback to the sequenced chunk.
+#include <cstring>
+
 #include "cycle_program.cuh"
 
 namespace tpuamg_pcgp {
@@ -59,8 +69,12 @@ constexpr float kTiny = 1e-30f;
 enum ArgWord {
   aLevels = 0, aNLevels, aOps, aNOps, aQPlanes, aX, aR, aP0, aP1, aQ, aZ,
   aN, aParts, aRzPrev, aStats, aChunk, aT, aBc, aXc, aPartial, aRowsC, aNc,
-  aNSplit, kNArgs
+  aNSplit, aStop, aThr, aTol, kNArgs
 };
+
+// the stop test (amg/grid_fused.py::_stop_args): 0 = none (whole chunk),
+// 1 = ||r|| <= thr, 2 = sqrt|r.z| <= thr, 3 = ||r|| <= tol max(||x||, tiny)
+constexpr double kTinyStop = 1e-300;
 
 struct Offs {
   int nd;
@@ -84,6 +98,9 @@ struct Args {
   const float* rz_prev;
   float* stats;
   int chunk;
+  int stop;
+  double thr;
+  double tol;
 };
 
 // Sum over the block of v by a fixed tree; every thread gets the result.
@@ -155,17 +172,49 @@ __global__ void __launch_bounds__(kThreads) pcg_persistent_kernel(Args a) {
   float* r = a.r;
   const float* z = a.z;
 
-  for (int it = 0; it < a.chunk; ++it) {
+  // it counts the iterations run; the loop's last pass (it == chunk, or
+  // the one that finds the crossing) only closes the stats rows
+  int ran = a.chunk;
+  int why = 0;          // 1 = met the stop test, 2 = non-finite residual
+  float rz = 0.f;
+  for (int it = 0;; ++it) {
     // rz = r.z
     float acc = 0.f;
     for (long long i = gtid; i < n; i += gstride) acc = fmaf(r[i], z[i], acc);
-    const float rz = grid_sum(acc, rz_parts, sh, grid);
+    rz = grid_sum(acc, rz_parts, sh, grid);
     const float beta = rz_last > 0.f ? rz / (rz_last + kTiny) : 0.f;
-    if (writer && it > 0) {
-      float* row = a.stats + static_cast<long long>(it - 1) * kStatsLanes;
-      row[1] = beta;
-      row[2] = sqrtf(fabsf(rz));
+    if (it > 0) {
+      const float res = sqrtf(fabsf(rz));
+      if (writer) {
+        float* row = a.stats + static_cast<long long>(it - 1) * kStatsLanes;
+        row[1] = beta;
+        row[2] = res;
+      }
+      // Iteration it - 1's stop test, in every block on the same values:
+      // rz from the barrier just passed, ||r|| and ||x|| re-reduced from
+      // partials that no block rewrites before the next barrier.  So
+      // every block takes the same branch.
+      if (a.stop != 0) {
+        if (!isfinite(res)) {
+          why = 2;
+        } else if (a.stop == 2) {
+          why = static_cast<double>(res) <= a.thr ? 1 : 0;
+        } else {
+          const double rt = sqrtf(reduce_parts(rn_parts, nb, sh));
+          if (a.stop == 1) {
+            why = rt <= a.thr ? 1 : 0;
+          } else {
+            const double xt = sqrtf(reduce_parts(xn_parts, nb, sh));
+            why = rt <= a.tol * fmax(xt, kTinyStop) ? 1 : 0;
+          }
+        }
+        if (why != 0) {
+          ran = it;
+          break;
+        }
+      }
     }
+    if (it == a.chunk) break;
     // p_new = z + beta p_old; q = Q p_new (p_new at j recomputed from
     // p_old, which no block writes in this step); p_new.q
     acc = 0.f;
@@ -222,16 +271,17 @@ __global__ void __launch_bounds__(kThreads) pcg_persistent_kernel(Args a) {
     p_new = tmp;
     rz_last = rz;
   }
-  float acc = 0.f;
-  for (long long i = gtid; i < n; i += gstride) acc = fmaf(r[i], z[i], acc);
-  const float rz_t = grid_sum(acc, rz_parts, sh, grid);
+  // p after `ran` iterations is p_old; the host takes p from the buffer
+  // that a whole chunk ends in, so an early exit of the other parity
+  // copies it there (no block reads p again in this launch)
+  if ((a.chunk - ran) & 1)
+    for (long long i = gtid; i < n; i += gstride) p_new[i] = p_old[i];
   if (writer) {
-    float* row = a.stats + static_cast<long long>(a.chunk - 1) * kStatsLanes;
-    row[1] = rz_last > 0.f ? rz_t / (rz_last + kTiny) : 0.f;
-    row[2] = sqrtf(fabsf(rz_t));
     float* carry = a.stats + static_cast<long long>(a.chunk) * kStatsLanes;
-    carry[0] = rz_t;
+    carry[0] = rz;
     carry[1] = rz_last;
+    carry[2] = static_cast<float>(ran);
+    carry[3] = static_cast<float>(why);
   }
 }
 
@@ -291,7 +341,7 @@ extern "C" int tpuamg_pcg_persistent(const long long* args, int nargs,
   if (nargs != kNArgs || ndq < 0 || ndq > kMaxDiags ||
       grid < 1 || args[aChunk] < 1 || args[aN] < 1 || args[aNSplit] < 1 ||
       args[aNLevels] < 1 || args[aNLevels] > 255 ||
-      args[aNOps] < 1 ||
+      args[aNOps] < 1 || args[aStop] < 0 || args[aStop] > 3 ||
       smem != table_bytes(args[aNLevels], args[aNOps]))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t se = allow_smem(k, smem);
@@ -319,6 +369,11 @@ extern "C" int tpuamg_pcg_persistent(const long long* args, int nargs,
   a.rz_prev = reinterpret_cast<const float*>(args[aRzPrev]);
   a.stats = reinterpret_cast<float*>(args[aStats]);
   a.chunk = static_cast<int>(args[aChunk]);
+  a.stop = static_cast<int>(args[aStop]);
+  double dv[2];
+  memcpy(dv, &args[aThr], sizeof(dv));   // aThr, aTol: doubles' bits
+  a.thr = dv[0];
+  a.tol = dv[1];
   a.cy.T = reinterpret_cast<const void*>(args[aT]);
   a.cy.bc = reinterpret_cast<float*>(args[aBc]);
   a.cy.xc = reinterpret_cast<float*>(args[aXc]);

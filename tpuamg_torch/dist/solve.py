@@ -217,7 +217,8 @@ class DistGridProblem:
 
     def solve(self, tol=1e-8, maxiter=500):
         """PCG on the mesh; the result's x is the whole solution, in the
-        caller's dof order, on every rank."""
+        caller's dof order, on every rank: the crossing iterate
+        (krylov.pcg)."""
         res = pcg(self.A, self.b, M=as_operator(self.prec), tol=tol,
                   maxiter=maxiter)
         x2 = self.mesh.all_gather(res.x).double().cpu().numpy()[self.slots]

@@ -6,7 +6,8 @@ Counterpart of the JAX package's ``krylov/cg.py::pcg``: residual history
 Lanczos alpha/beta -> eigenvalue estimates -> condition number, HAZmath's
 stop types 1/2/3, and a callback.  The loop runs on the tensors' device
 and keeps every scalar there; the host reads the per-iteration statistics
-once every ``chunk`` iterations to test convergence.
+once per chunk to test convergence, and returns the iterate of the first
+iteration that meets the test.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ class CGResult:
     true_residuals: np.ndarray   # ||r||_2 recurrence history
     alphas: np.ndarray
     betas: np.ndarray
+    executed: int = 0            # iterations run (M ran once more: z0)
+    host_reads: int = 0          # reads of the device's statistics
 
     def eigenvalue_estimates(self):
         """Eigenvalue estimates of B·A from the CG Lanczos tridiagonal
@@ -59,6 +62,32 @@ def _norm(u):
     return torch.linalg.vector_norm(u)
 
 
+def next_chunk(q, target, cap, last=1):
+    """Iterations to run before the next host read, from the tested
+    quantity's history q (q[0] at the solve's start, q[-1] now; the last
+    ``last`` entries are the last chunk's).  The contraction rate is the
+    fastest of three: the whole history's, the last chunk's and the last
+    four iterations' (convergence speeds up as CG goes on).  The chunk is
+    half the iterations that rate needs to reach ``target``, rounded
+    down, at least 1 and at most ``cap`` and the iterations run so far.
+    Without a target (0): ``cap``; without a contraction: the last
+    chunk's length."""
+    if not target > 0:
+        return cap
+    q = np.asarray(q, dtype=np.float64)
+    k = len(q) - 1
+    if k < 1 or not np.all(np.isfinite(q)) or q[-1] <= 0:
+        return 1
+    rate = np.inf
+    for m in {k, last, min(4, last, k)}:
+        if 0 < m <= k and q[-1 - m] > 0:
+            rate = min(rate, np.log(q[-1] / q[-1 - m]) / m)
+    if not rate < 0:
+        return max(1, min(cap, last, k))
+    left = np.log(target / q[-1]) / rate
+    return int(max(1, min(cap, k, np.floor(0.5 * left))))
+
+
 def pcg(A, b, M=None, x0=None, tol=1e-8, maxiter=500, callback=None,
         chunk=32, stop_type=2):
     """Solve A x = b with PCG; returns CGResult.
@@ -67,7 +96,8 @@ def pcg(A, b, M=None, x0=None, tol=1e-8, maxiter=500, callback=None,
     ``dots`` (a row-sharded operator, ``dist.dist_kernels.ShardedDIA``)
     supplies the inner products of its vectors: every dot and norm then
     goes through it, two all-reduces over the ranks per iteration, so the
-    host reads the same statistics on every rank.
+    host reads the same statistics on every rank (and every rank picks
+    the same chunk lengths).
 
     stop_type selects the convergence test, mirroring HAZmath's
     ``linear_stop_type`` (input_metric.dat:54):
@@ -76,9 +106,18 @@ def pcg(A, b, M=None, x0=None, tol=1e-8, maxiter=500, callback=None,
           — the default
       3 = ||r||_2 / ||x||_2        (STOP_MOD_REL_RES)
 
-    Safe divides (rz / (pAp + tiny)) keep iterations after convergence
-    harmless: the history is cut at the first iteration that meets the
-    test, and x is the iterate at the end of that chunk.
+    The host reads the per-iteration statistics once per chunk, cuts the
+    history at the first iteration that meets the test and returns that
+    iteration's x (the crossing iterate).  Chunk lengths come from the
+    tested quantity's contraction (``next_chunk``), at most ``chunk``, so
+    a chunk rarely runs past the crossing; one that does is run again
+    from its saved start (x, r, p, z, rz) up to the crossing.  The
+    result's ``executed`` counts the iterations run (the preconditioner
+    ran once more, for z0) and ``host_reads`` the reads.  executed is
+    niters, or niters + n when one chunk of n iterations ran past the
+    crossing and was run again; n is at most ``chunk`` and at most the
+    iterations run before that chunk (``next_chunk``).  A non-finite
+    residual stops the solve at the end of its chunk.
     """
     Afn = A.matvec if hasattr(A, "matvec") else A
     dots = getattr(A, "dots", None)
@@ -108,7 +147,8 @@ def pcg(A, b, M=None, x0=None, tol=1e-8, maxiter=500, callback=None,
     true_hist = [float(init[1])]
     norm_b = float(init[2]) if stop_type == 1 else 0.0
     alphas, betas = [], []
-    k = 0
+    k = executed = 0
+    reads = 1
     if stop_type == 1:
         converged = true_hist[0] <= tol * norm_b or norm_b == 0.0
     else:
@@ -121,14 +161,24 @@ def pcg(A, b, M=None, x0=None, tol=1e-8, maxiter=500, callback=None,
             return o[:, 3] <= tol * np.maximum(o[:, 4], _TINY)
         return o[:, 2] <= tol * res0
 
-    while not converged and k < maxiter:
-        n_run = min(chunk, maxiter - k)
+    # the tested quantity's history and its target, for the chunk lengths
+    if stop_type == 1:
+        tested, target = true_hist, tol * norm_b
+    elif stop_type == 3:
+        tested, target = [], tol        # ||r|| / ||x||, from iteration 1
+    else:
+        tested, target = res_hist, tol * res0
+
+    def run(state, n):
+        """n iterations from state = (x, r, p, z, rz); x, r and p are
+        never updated in place, so a saved state stays valid."""
+        x, r, p, z, rz = state
         stats = []
-        for _ in range(n_run):
+        for _ in range(n):
             Ap = Afn(p)
             alpha = rz / (dot(p, Ap) + tiny)
-            x.add_(alpha * p)
-            r.sub_(alpha * Ap)
+            x = x + alpha * p
+            r = r - alpha * Ap
             z = Mfn(r)
             rz_new, nr, nx = rz_norms(r, z, x)
             beta = rz_new / (rz + tiny)
@@ -136,18 +186,37 @@ def pcg(A, b, M=None, x0=None, tol=1e-8, maxiter=500, callback=None,
             rz = rz_new
             stats.append(torch.stack([alpha, beta, torch.sqrt(rz.abs()),
                                       nr, nx]))
+        return (x, r, p, z, rz), stats
+
+    state = (x, r, p, z, rz)
+    n_run = 1
+    while not converged and k < maxiter:
+        cap = min(chunk, maxiter - k)
+        n_run = next_chunk(tested, target, cap, n_run) if k else 1
+        # the chunk's start, kept to rerun it up to a crossing inside it
+        saved = state[:3] + (state[3].clone(), state[4]) \
+            if n_run > 1 else None
+        state, stats = run(state, n_run)
+        executed += n_run
         # one host read per chunk: alpha beta res true xnorm
         o = torch.stack(stats).double().cpu().numpy()
+        reads += 1
         cross = _crossed(o)
         hit = np.flatnonzero(cross | ~np.isfinite(o[:, 2]))
         take = int(hit[0]) + 1 if len(hit) else n_run
+        converged = len(hit) > 0 and np.isfinite(o[hit[0], 2]) \
+            and bool(cross[hit[0]])
+        if converged and take < n_run and saved is not None:
+            state, _ = run(saved, take)     # back to the crossing iterate
+            executed += take
         alphas.extend(o[:take, 0].tolist())
         betas.extend(o[:take, 1].tolist())
         res_hist.extend(o[:take, 2].tolist())
         true_hist.extend(o[:take, 3].tolist())
+        if stop_type == 3:
+            tested.extend((o[:take, 3] / np.maximum(o[:take, 4], _TINY)
+                           ).tolist())
         k += take
-        converged = len(hit) > 0 and np.isfinite(o[hit[0], 2]) \
-            and bool(cross[hit[0]])
         if len(hit) and not converged:
             break     # breakdown (non-finite residual): stop, report as-is
     res = np.asarray(res_hist)
@@ -155,6 +224,7 @@ def pcg(A, b, M=None, x0=None, tol=1e-8, maxiter=500, callback=None,
     if callback is not None:
         for i in range(1, k + 1):
             callback(i, None, true[i])
-    return CGResult(x=x, niters=k, converged=bool(converged),
+    return CGResult(x=state[0], niters=k, converged=bool(converged),
                     residuals=res, true_residuals=true,
-                    alphas=np.asarray(alphas), betas=np.asarray(betas))
+                    alphas=np.asarray(alphas), betas=np.asarray(betas),
+                    executed=executed, host_reads=reads)

@@ -3,10 +3,10 @@ tensors.
 
 Counterpart of the JAX package's ``krylov/minres.py``: the Paige–Saunders
 recurrence with a symmetric positive preconditioner, run in chunks of
-``chunk`` iterations whose scalars stay on the device; the host reads the
+iterations whose scalars stay on the device; the host reads the
 per-iteration statistics (phibar, alpha, beta) once per chunk, cuts the
-history at the first iteration that meets the tolerance, and keeps the
-iterate at the end of that chunk, as the JAX package does.
+history at the first iteration that meets the tolerance, and returns that
+iteration's iterate.
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ class MinresResult:
     residuals: np.ndarray
     alphas: np.ndarray = None    # Lanczos diagonal (preconditioned op)
     betas: np.ndarray = None     # Lanczos off-diagonal beta_{k+1}
+    executed: int = 0            # iterations run (M ran once more)
+    host_reads: int = 0          # reads of the device's statistics
 
     def eigenvalue_estimates(self):
         """Eigenvalue estimates of M*A from the MINRES Lanczos
@@ -87,6 +89,14 @@ def _minres_chunk(A, M, state, chunk):
 
 
 def minres(A, b, M=None, x0=None, tol=1e-8, maxiter=500, chunk=32):
+    """Solve the symmetric system A x = b with preconditioned MINRES;
+    returns MinresResult.  The host reads the statistics once per chunk
+    and returns the iterate of the first iteration whose phibar meets
+    ``tol * phibar_0``: chunk lengths come from phibar's contraction
+    (``krylov.cg.next_chunk``, at most ``chunk``), and a chunk that runs
+    past the crossing is run again from its saved start up to it, so
+    ``executed`` is bounded as krylov.cg.pcg's is."""
+    from .cg import next_chunk
     Afn = A.matvec if hasattr(A, "matvec") else A
     Mfn = (M.matvec if hasattr(M, "matvec") else M) if M is not None \
         else (lambda r: r)
@@ -110,24 +120,38 @@ def minres(A, b, M=None, x0=None, tol=1e-8, maxiter=500, chunk=32):
              scalar(-1.0), zero, torch.zeros_like(b), torch.zeros_like(b))
     res_hist = [res0]
     alphas, betas = [], []
-    k = 0
+    k = executed = 0
+    reads = 1
     converged = res0 == 0.0
+    n_run = 1
     while not converged and k < maxiter:
-        state, outs = _minres_chunk(Afn, Mfn, state, chunk)
-        o = outs.double().cpu().numpy()   # (chunk, 3): phibar alfa betan
+        n_run = next_chunk(res_hist, tol * res0, min(chunk, maxiter - k),
+                           n_run) if k else 1
+        # the chunk's start (the chunk makes new tensors, but y may be
+        # M's own buffer), kept to rerun it up to a crossing inside it
+        saved = state[:3] + (state[3].clone(),) + state[4:] \
+            if n_run > 1 else None
+        state, outs = _minres_chunk(Afn, Mfn, state, n_run)
+        executed += n_run
+        o = outs.double().cpu().numpy()   # (n_run, 3): phibar alfa betan
+        reads += 1
         ph = o[:, 0]
         hit = np.flatnonzero((ph <= tol * res0) | ~np.isfinite(ph))
-        take = int(hit[0]) + 1 if len(hit) else chunk
+        take = int(hit[0]) + 1 if len(hit) else n_run
         take = min(take, maxiter - k)
+        converged = len(hit) > 0 and np.isfinite(ph[hit[0]]) \
+            and ph[hit[0]] <= tol * res0
+        if converged and take < n_run and saved is not None:
+            state, _ = _minres_chunk(Afn, Mfn, saved, take)
+            executed += take
         res_hist.extend(ph[:take].tolist())
         alphas.extend(o[:take, 1].tolist())
         betas.extend(o[:take, 2].tolist())
         k += take
-        converged = len(hit) > 0 and np.isfinite(ph[hit[0]]) \
-            and ph[hit[0]] <= tol * res0
         if len(hit) and not converged:
             break
     return MinresResult(x=state[0], niters=k, converged=bool(converged),
                         residuals=np.asarray(res_hist),
                         alphas=np.asarray(alphas),
-                        betas=np.asarray(betas))
+                        betas=np.asarray(betas), executed=executed,
+                        host_reads=reads)

@@ -74,6 +74,9 @@ class SolveReport:
     # single-solve tables (a refine=4 run at ~15 iters/pass reports 60).
     pass_iters: tuple = ()
     route: str = ""               # "a", "b" or "c": the grid route taken
+    # Krylov iterations the device ran (niters counts those up to the
+    # crossing; a chunk run again to reach it counts twice)
+    executed: int = 0
 
 
 def _torch_dtype(dtype):
@@ -200,8 +203,10 @@ def solve_system(A: HostCSR, b, precond: str, sizes, idofs=None,
     (default) = single solve, `tol` is the Krylov method's
     preconditioned-residual target.
 
-    chunk: PCG iterations between host reads (krylov.pcg chunk; the
-    fused route (a) keeps pcg_fused's own default of 32).
+    chunk: the most PCG iterations between host reads (krylov.pcg
+    chunk; the fused route (a) keeps pcg_fused's own default of 32).
+    PCG and MINRES return the iterate of the first iteration that meets
+    the stop test (krylov.pcg, krylov.minres, pcg_fused).
 
     The parameters shared with the JAX signature come in its order.
 
@@ -269,7 +274,7 @@ def solve_system(A: HostCSR, b, precond: str, sizes, idofs=None,
         b64 = np.asarray(b, dtype=np.float64)
         bnorm = np.linalg.norm(b64) or 1.0
         x = np.zeros_like(b64)
-        total_iters, cond = 0, float("nan")
+        total_iters, total_run, cond = 0, 0, float("nan")
         hist = []
         pass_iters = []
         for step in range(refine):
@@ -282,6 +287,7 @@ def solve_system(A: HostCSR, b, precond: str, sizes, idofs=None,
             if step == 0 and method == "cg":
                 cond = res.cond
             total_iters += res.niters
+            total_run += getattr(res, "executed", res.niters)
             pass_iters.append(int(res.niters))
             x = x + d
         rel = np.linalg.norm(b64 - A.matvec(x)) / bnorm
@@ -291,7 +297,7 @@ def solve_system(A: HostCSR, b, precond: str, sizes, idofs=None,
             x=x, niters=total_iters, converged=bool(rel < tol), cond=cond,
             r_norm=float(rel), t_setup=t_setup, t_solve=t_solve,
             residuals=np.asarray(hist), pass_iters=tuple(pass_iters),
-            route=route)
+            route=route, executed=total_run)
 
     x, res = _run(bj, tol, maxiter)
     cond = res.cond if method == "cg" else float("nan")
@@ -303,7 +309,8 @@ def solve_system(A: HostCSR, b, precond: str, sizes, idofs=None,
     return SolveReport(
         x=x, niters=res.niters, converged=res.converged, cond=cond,
         r_norm=float(res.residuals[-1]), t_setup=t_setup, t_solve=t_solve,
-        residuals=res.residuals, route=route)
+        residuals=res.residuals, route=route,
+        executed=getattr(res, "executed", res.niters))
 
 
 def _sync(dev):
