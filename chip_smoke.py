@@ -124,6 +124,24 @@ barrier that completes an iteration's r.z), and adds the 3D-1D pipeline
      X3D1D_LIMIT) and the true relative residual <= 1e-6
      (host, f64); set-up and solve seconds, ms per iteration, torch
      operations per cycle (profiler).
+The ninth slice, the structured 3D-1D route (setup_structured, the
+footprint operator, the host float64 tail, the factored outer operator)
+and K1's wide entry (more than 64 diagonals, offsets from a device
+array), adds:
+ 20. phase 20 names -route algebraic: with coords.npy on the card
+     run_solver_3d1d now takes the structured route;
+ 21. run_solver_3d1d on the card at mesh_n 16 (phase 20's dumps), gamma 1
+     and 1e8, its default route there (structured: f32 storage, f64
+     Krylov, refine 3, the factored outer operator with AD on K1, the
+     host tail): the route, slots and real dofs, AD's band count, K1
+     wide launches per iteration, the K3/K1 branch of each window level,
+     set-up, pass iterations, ms per iteration with the host tail's
+     share, the true residual; converged, true residual <= 1e-6, pass
+     iterations within 1 of the CPU run of the same keywords; K1's wide
+     entry on AD (matvec and residual) against plain, by events and
+     profiler device time warm and after a 128 MB write, beside its bytes
+     bound and CSR @ on the same operator; K3 on a structured window
+     hierarchy (bidomain 2D n=127) against plain.
 Then a JSON line {"kernels": [...]}, the nvidia-smi line, and, last, the
 result line {"ok": true, "device": {...}}.  Any failed check raises, and
 the script exits nonzero; a watchdog ends it, with a traceback and a
@@ -132,7 +150,7 @@ nonzero code, if it runs past WATCHDOG_S seconds.
 import faulthandler
 import sys
 
-WATCHDOG_S = 600
+WATCHDOG_S = 900
 faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
 
 import json  # noqa: E402
@@ -630,6 +648,10 @@ def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4,
     for gamma in ("1", "100000000"):
         phase20(dev, mesh_n, gamma)
     say(f"[20 done] total {time.perf_counter() - t_all:.1f} s")
+
+    # ---- 21: the ninth slice, the structured 3D-1D route ---------------
+    phase21(dev, kern, mesh_n)
+    say(f"[21 done] total {time.perf_counter() - t_all:.1f} s")
     return kern
 
 
@@ -1751,34 +1773,37 @@ def run_algebraic_driver(dev, nrefs):
               f"[0.9, 1.1]")
 
 
-class recorded_preconditioner:
-    """Within the block, solve_system's make_preconditioner is recorded:
-    .built holds what it built, so a phase runs the hierarchy the solve
-    ran."""
+class recorded:
+    """Within the block, module.name is recorded: .out holds what each
+    call returned (the hierarchy or operator a solve built)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.out = module, name, []
 
     def __enter__(self):
-        from tpuamg_torch.problems import solve as tsolve
-        self.built, self.make = [], tsolve.make_preconditioner
+        self.fn = getattr(self.module, self.name)
 
         def recording(*args, **kw):
-            self.built.append(self.make(*args, **kw))
-            return self.built[-1]
-        tsolve.make_preconditioner = recording
+            self.out.append(self.fn(*args, **kw))
+            return self.out[-1]
+        setattr(self.module, self.name, recording)
         return self
 
     def __exit__(self, *exc):
-        from tpuamg_torch.problems import solve as tsolve
-        tsolve.make_preconditioner = self.make
+        setattr(self.module, self.name, self.fn)
 
 
 def phase20(dev, mesh_n, gamma):
     """The 3D-1D pipeline at one gamma through its entry points, in a
-    temporary directory (module docstring)."""
+    temporary directory, on the algebraic route (-route algebraic: with
+    coords.npy on the card run_solver_3d1d takes the structured route,
+    phase 21) (module docstring)."""
     import os
     import shutil
     import tempfile
     from tpuamg_torch.io_utils import load_system, read_solution
     from tpuamg_torch.problems import emi_3d1d, run_solver_3d1d
+    from tpuamg_torch.problems import solve as tsolve
     with tempfile.TemporaryDirectory() as tmp:
         d, o, oc = (os.path.join(tmp, k) + "/"
                     for k in ("dump", "out", "out_cpu"))
@@ -1787,14 +1812,14 @@ def phase20(dev, mesh_n, gamma):
                              "1", "-outdir", d, "-mesh_n", str(mesh_n)])
               == 0, "emi_3d1d -dump 1 failed")
         t_dump = time.perf_counter() - t0
-        with recorded_preconditioner() as rec:
+        with recorded(tsolve, "make_preconditioner") as rec:
             t0 = time.perf_counter()
-            rep = run_solver_3d1d.main(["-indir", d, "-outdir", o],
-                                       device=dev)
+            rep = run_solver_3d1d.main(["-indir", d, "-outdir", o,
+                                        "-route", "algebraic"], device=dev)
             t_run = time.perf_counter() - t0
-        prec = rec.built[0].__self__
-        ref = run_solver_3d1d.main(["-indir", d, "-outdir", oc],
-                                   device="cpu")
+        prec = rec.out[0].__self__
+        ref = run_solver_3d1d.main(["-indir", d, "-outdir", oc, "-route",
+                                    "algebraic"], device="cpu")
         A, b, _, _ = load_system(d)
         x = read_solution(o)
         true_rel = float(np.linalg.norm(b - A.matvec(x))
@@ -1837,6 +1862,254 @@ def phase20(dev, mesh_n, gamma):
               f"3d1d gamma {gamma}: true rel residual {true_rel:.3e}")
         check_executed(f"3d1d gamma {gamma}", rep.niters, rep.executed)
         check(len(vtu) == 2, f"3d1d -load_solution wrote {vtu}")
+
+
+class timed_tail:
+    """Within the block, HostTailHybrid.tail_apply's host seconds add up
+    in .seconds (calls in .calls)."""
+
+    def __enter__(self):
+        from tpuamg_torch.amg.structured import HostTailHybrid
+        self.cls, self.fn = HostTailHybrid, HostTailHybrid.tail_apply
+        self.seconds, self.calls = 0.0, 0
+
+        def tail_apply(hybrid, rc):
+            t0 = time.perf_counter()
+            out = self.fn(hybrid, rc)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        self.cls.tail_apply = tail_apply
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.tail_apply = self.fn
+
+
+def phase21(dev, kern, mesh_n):
+    """The ninth slice (module docstring): run_solver_3d1d's structured
+    route on the card at gamma 1 and 1e8 against the CPU; K1's wide entry
+    on the factored operator's AD; K3 on a structured window hierarchy."""
+    ad = None
+    for gamma in ("1", "100000000"):
+        ad, counts = phase21_solve(dev, mesh_n, gamma)
+    phase21_wide(dev, kern, ad, counts)
+    phase21_k3(dev)
+
+
+def phase21_solve(dev, mesh_n, gamma):
+    """One gamma of phase 21; returns (AD, the solve's launch counts)."""
+    import os
+    import tempfile
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg import structured as tstruct
+    from tpuamg_torch.io_utils import load_system, read_solution
+    from tpuamg_torch.problems import emi_3d1d, run_solver_3d1d
+    from tpuamg_torch.problems import solve as tsolve
+    with tempfile.TemporaryDirectory() as tmp:
+        d, o, oc = (os.path.join(tmp, k) + "/"
+                    for k in ("dump", "out", "out_cpu"))
+        check(emi_3d1d.main(["-gamma", gamma, "-radius", "0.2", "-dump",
+                             "1", "-outdir", d, "-mesh_n", str(mesh_n)])
+              == 0, "emi_3d1d -dump 1 failed")
+        with recorded(tstruct, "setup_structured") as hier, \
+                recorded(tsolve, "_split_metric_operator") as outer, \
+                timed_tail() as tail:
+            sync(dev)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            # the card's default route; a CPU rehearsal names it
+            rep = run_solver_3d1d.main(
+                ["-indir", d, "-outdir", o] + (
+                    [] if dev.type == "cuda" else ["-route", "structured"]),
+                device=dev)
+            sync(dev)
+            t_run = time.perf_counter() - t0
+            counts = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        ref = run_solver_3d1d.main(["-indir", d, "-outdir", oc, "-route",
+                                    "structured"], device="cpu")
+        t_cpu = time.perf_counter() - t0
+        A, b, _, _ = load_system(d)
+        true_rel = float(np.linalg.norm(b - A.matvec(read_solution(o)))
+                         / np.linalg.norm(b))
+    prec, slots, nsl = hier.out[0]
+    AD = outer.out[0].AD
+    fine = getattr(prec, "fine", prec)
+    branches = [(L.A.shape[0], type(L.A).__name__,
+                 len(getattr(L.A, "dia", L.A).offsets),
+                 type(L.smoother).__name__) for L in fine.levels] or \
+        "none (the whole hierarchy is the host tail)"
+    its = sum(rep.pass_iters)
+    # one outer matvec per iteration and one per pass (r0), one wide
+    # launch each when AD has more than MAX_DIAGS bands
+    wide = counts.get("dia_spmv_wide", 0)
+    tail_ms = tail.seconds / max(tail.calls, 1) * 1e3
+    ms_it = rep.t_solve / max(its, 1) * 1e3
+    say(f"[21 structured gamma {float(gamma):g}] route {rep.route}; "
+        f"mesh_n {mesh_n}: {len(b)} real dofs in {nsl} slots | AD "
+        f"{type(AD).__name__} {len(AD.offsets)} bands "
+        f"({'wide' if len(AD.offsets) > kernels.MAX_DIAGS else '<=64'} "
+        f"K1 entry) | K1 wide launches {wide} for {its} iterations + "
+        f"{len(rep.pass_iters)} passes ({wide / max(its, 1):.3f} per "
+        f"iteration) | window levels {branches} | run_solver_3d1d "
+        f"{t_run:.2f} s "
+        f"(set-up {rep.t_setup:.3f} s, solve {rep.t_solve:.3f} s, "
+        f"{ms_it:.2f} ms per iteration, of which host tail "
+        f"{tail_ms:.2f} ms per application, {tail.calls} applications, "
+        f"{tail.seconds / max(rep.t_solve, 1e-9):.3f} of the solve) | pass "
+        f"iterations {list(rep.pass_iters)} (CPU {list(ref.pass_iters)}, "
+        f"{t_cpu:.2f} s) converged {rep.converged} true rel residual "
+        f"{true_rel:.3e} | launches {counts}")
+    check(rep.route == "structured", f"run_solver_3d1d on the card took "
+          f"the {rep.route!r} route")
+    check(rep.converged and np.isfinite(true_rel) and true_rel <= 1e-6,
+          f"structured gamma {gamma}: converged {rep.converged}, true rel "
+          f"residual {true_rel:.3e}")
+    check(len(rep.pass_iters) == len(ref.pass_iters) and all(
+        abs(a - c) <= 1 for a, c in zip(rep.pass_iters, ref.pass_iters)),
+        f"structured gamma {gamma}: pass iterations {rep.pass_iters} vs "
+        f"CPU {ref.pass_iters}")
+    if dev.type == "cuda":
+        name = "dia_spmv_wide" if len(AD.offsets) > kernels.MAX_DIAGS \
+            else "dia_spmv"
+        check(counts.get(name, 0) >= its + len(rep.pass_iters),
+              f"structured gamma {gamma}: {counts.get(name, 0)} {name} "
+              f"launches for {its} iterations")
+    return AD, counts
+
+
+def phase21_wide(dev, kern, AD, counts):
+    """K1's wide entry on AD at its real band count: against plain, by
+    events and profiler device time (warm and after a 128 MB write),
+    beside its bytes bound and the CSR library call."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.sparse.dia_kernels import dia_spmv_plain
+    on_card = dev.type == "cuda"
+    n = AD.shape[0]
+    rng = np.random.default_rng(21)
+    x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32).to(dev)
+    bb = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32
+                         ).to(dev)
+    planes, offs = AD.planes, AD.offsets
+    for label, rhs in (("dia_spmv_wide", None), ("dia_residual_wide", bb)):
+        before = kernels.LAUNCHES[label]
+        y = (AD.matvec(x) if rhs is None else AD.residual(x, rhs)).clone()
+        y_p = dia_spmv_plain(offs, planes, x, rhs)
+        sync(dev)
+        check(not on_card or kernels.LAUNCHES[label] == before + 1,
+              f"{label} kernel not launched")
+        abs_err = float((y - y_p).abs().max())
+        rel = abs_err / float(y_p.abs().max())
+        check(np.isfinite(rel) and rel <= 1e-5,
+              f"{label} vs plain: rel err {rel:.3e} > 1e-5")
+        reps = 200 if on_card else 2
+        call = (lambda: AD.matvec(x)) if rhs is None else \
+            (lambda: AD.residual(x, rhs))
+        ms = timed_ms(call, reps, dev)
+        plain_ms = timed_ms(lambda: dia_spmv_plain(offs, planes, x, rhs),
+                            max(reps // 20, 2), dev)
+        nbytes = planes.numel() * planes.element_size() + 4 * n * (
+            2 + (rhs is not None))
+        flops = 2 * planes.numel() + (n if rhs is not None else 0)
+        bms, by = bound_ms(nbytes, flops)
+
+        def make_library_call(rhs=rhs):
+            M = csr_of(AD.to_host(), dev)
+            if rhs is None:
+                return lambda: M @ x
+            return lambda: torch.addmv(rhs, M, x, beta=1.0, alpha=-1.0)
+        lib = library_ms(make_library_call, reps, dev)
+        wc = warm_cold_us(call, "dia_wide_kernel", dev) if on_card else \
+            {False: "not measured", True: "not measured"}
+        say(f"[21 K1 {label}] AD planes {tuple(planes.shape)} "
+            f"{planes.dtype}, {len(offs)} bands, offsets "
+            f"{min(offs)}..{max(offs)} | max_abs_err {abs_err:.3e} rel "
+            f"{rel:.3e} | kernel {ms:.5f} ms (events), device time "
+            f"warm {fmt_us(wc[False])}, cold (after a 128 MB write) "
+            f"{fmt_us(wc[True])} | plain {plain_ms:.5f} ms csr-library "
+            f"{lib} ms | bound {bms:.5f} ms ({by}, {nbytes} B, {flops} "
+            f"flop) -> {bms / ms:.3f} of bound by events")
+        kern.append(dict(name=label, route="cuda",
+                         source="tpuamg_torch/csrc/dia.cu",
+                         replaces=("tpuamg/sparse/dia_pallas.py:198"
+                                   if rhs is None else
+                                   "tpuamg/sparse/dia_pallas.py:210"),
+                         launches=counts.get(label, 0), max_abs_err=abs_err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by, library_ms=lib))
+
+
+def phase21_k3(dev, n=127):
+    """K3 on structured window levels: the bidomain 2D system on the
+    structured hierarchy (structured_coords, no footprint, f32; n=127:
+    128 x 128 vertices, where the Morton rank is the code, and still only
+    the coarsest level has <= 64 bands); each
+    level's branch (FusedChebSmoother = K3 where A and C have at most
+    MAX_DIAGS bands, else DiaChebyshevSmoother over K1) and each K3
+    level's application against cheb_sweep_plain at phase 7's limit."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg.structured import setup_structured
+    from tpuamg_torch.config import PRESETS
+    from tpuamg_torch.fem import mms
+    from tpuamg_torch.problems.bidomain import Params, get_mesh, get_system
+    from tpuamg_torch.sparse.dia_kernels import (FusedChebSmoother,
+                                                 cheb_sweep_plain)
+    p = Params(2.0, 3.0, GAMMA)
+    mesh = get_mesh(n, 2)
+    A, _, _, _ = get_system(mesh, mms.setup_bidomain_mms(p, 2), p)
+    coords = np.concatenate([mesh.vertices, mesh.vertices])
+    prm = replace(PRESETS["metric_schwarz"], dtype="float32",
+                  cycle_type="v", coarse_dof=200)
+    t0 = time.perf_counter()
+    prec, _, _ = setup_structured(A, coords, prm, dtype=torch.float32,
+                                  device=dev)
+    t_set = time.perf_counter() - t0
+    rng = np.random.default_rng(22)
+    rows = []
+    for L in prec.levels:
+        sm = L.smoother
+        nA = len(L.A.offsets)
+        k3 = isinstance(sm, FusedChebSmoother)
+        check(k3 == (nA <= kernels.MAX_DIAGS),
+              f"structured level of {nA} bands took {type(sm).__name__}")
+        if not k3:
+            rows.append((L.A.shape[0], nA, "K1 (DiaChebyshevSmoother)"))
+            continue
+        m = L.A.shape[0]
+        x = torch.as_tensor(rng.standard_normal(m), dtype=torch.float32,
+                            device=dev) * L.mask
+        b = torch.as_tensor(rng.standard_normal(m), dtype=torch.float32,
+                            device=dev) * L.mask
+        before = kernels.LAUNCHES["cheb_sweep"]
+        xk, _ = sm.smooth_residual(L.A, x, b, 1)
+        sync(dev)
+        check(dev.type != "cuda"
+              or kernels.LAUNCHES["cheb_sweep"] == before + 1,
+              "structured K3 not launched")
+        xp, _ = cheb_sweep_plain(sm.offsA, sm.planesA, sm.offsC, sm.planesC,
+                                 x, b, sm.theta, sm.coefs, sm.degree, 1)
+        x64, _ = cheb_sweep_plain(sm.offsA, sm.planesA.double(), sm.offsC,
+                                  sm.planesC.double(), x.double(),
+                                  b.double(), sm.theta, sm.coefs,
+                                  sm.degree, 1)
+        floor = rel_err(xp.double(), x64)
+        err = rel_err(xk, xp)
+        check(err <= max(1e-5, 2 * floor),
+              f"structured K3 at {m} rows: {err:.3e} vs plain (floor "
+              f"{floor:.3e})")
+        reps = 200 if dev.type == "cuda" else 2
+        ms = timed_ms(lambda: sm.smooth_residual(L.A, x, b, 1), reps, dev)
+        plain_ms = timed_ms(lambda: cheb_sweep_plain(
+            sm.offsA, sm.planesA, sm.offsC, sm.planesC, x, b, sm.theta,
+            sm.coefs, sm.degree, 1, True), max(reps // 20, 2), dev)
+        rows.append((m, nA, f"K3 {err:.2e}, {ms:.5f} ms (plain "
+                            f"{plain_ms:.5f})"))
+    say(f"[21 K3 structured] bidomain 2D n={n} on setup_structured (f32, "
+        f"set-up {t_set:.2f} s): levels (rows, A bands, branch, rel err "
+        f"vs plain, smooth_residual by events) {rows}")
+    check(any(r[2].startswith("K3") for r in rows),
+          "no structured level took K3")
 
 
 def route_pair(fp, bk, vc, A, b, slots, n, dev, its_a, plain, ms_a=None):

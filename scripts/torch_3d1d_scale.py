@@ -26,7 +26,17 @@ package's TPU record on its structured f32 + refine route (102
 iterations at gamma 1e8, 77 at gamma 1) is printed beside the count as a
 reference, not a gate.
 
-    python3 scripts/torch_3d1d_scale.py [mesh_n] [radius] [gamma ...]
+--route algebraic (the default here) solves as above (-route algebraic
+of run_solver_3d1d).  --route structured takes run_solver_3d1d's
+structured route, its default on the card (f32 storage, f64 Krylov
+vectors, refine 3, the factored outer operator with AD on kernel K1, the
+whole metric-AMG hierarchy as the host float64 tail); it prints the pass
+iterations, ms per iteration split into the host tail and the rest (the
+device work and its host launches), the device busy time of two PCG
+iterations without the tail (torch.profiler) and the idle share.
+
+    python3 scripts/torch_3d1d_scale.py [--route algebraic|structured]
+        [mesh_n] [radius] [gamma ...]
 """
 import json
 import os
@@ -85,7 +95,95 @@ def device_busy(fn, dev):
     return (len(evs), busy, rows) if busy > 0 else None
 
 
-def run_gamma(dev, mesh_n, radius, gamma, tmp):
+def run_structured(dev, d, o, gamma, t_asm):
+    """run_solver_3d1d's structured route on the dump in d; the numbers."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg import structured as tstruct
+    from tpuamg_torch.amg.structured import HostTailHybrid
+    from tpuamg_torch.io_utils import load_system, read_solution
+    from tpuamg_torch.krylov import pcg_split
+    from tpuamg_torch.problems import run_solver_3d1d
+    from tpuamg_torch.problems import solve as tsolve
+    built, outer, tail = [], [], {"s": 0.0, "calls": 0}
+    setup, split, apply = (tstruct.setup_structured,
+                           tsolve._split_metric_operator,
+                           HostTailHybrid.tail_apply)
+
+    def rec_setup(*a, **k):
+        built.append(setup(*a, **k))
+        return built[-1]
+
+    def rec_split(*a, **k):
+        outer.append(split(*a, **k))
+        return outer[-1]
+
+    def timed_apply(hybrid, rc):
+        t0 = time.perf_counter()
+        out = apply(hybrid, rc)
+        tail["s"] += time.perf_counter() - t0
+        tail["calls"] += 1
+        return out
+    tstruct.setup_structured, tsolve._split_metric_operator = \
+        rec_setup, rec_split
+    HostTailHybrid.tail_apply = timed_apply
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rep = run_solver_3d1d.main(["-indir", d, "-outdir", o, "-route",
+                                    "structured"], device=dev)
+        torch.cuda.synchronize(dev)
+        t_run = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+    finally:
+        tstruct.setup_structured, tsolve._split_metric_operator = \
+            setup, split
+        HostTailHybrid.tail_apply = apply
+    prec, slots, nsl = built[0]
+    AD = outer[0].AD
+    A, b, _, _ = load_system(d)
+    true_rel = float(np.linalg.norm(b - A.matvec(read_solution(o)))
+                     / np.linalg.norm(b))
+    its = sum(rep.pass_iters)
+    ms_it = rep.t_solve / max(its, 1) * 1e3
+    tail_ms = tail["s"] / max(tail["calls"], 1) * 1e3
+    # device busy of two PCG iterations with the tail replaced by an
+    # identity step (the device part of an iteration: outer operator,
+    # fine levels (none here), CG updates, the boundary copies)
+    bk = torch.zeros(nsl, dtype=torch.float64, device=dev)
+    bk[torch.as_tensor(slots, device=dev)] = torch.as_tensor(
+        b, dtype=torch.float64, device=dev)
+    two = device_busy(lambda: pcg_split(outer[0], bk, prec.fine,
+                                        lambda rc: rc, tol=0.0, maxiter=2),
+                      dev)
+    per_it = None if two is None else two[1] / 3
+    idle = "not measured" if per_it is None else 1 - per_it / (ms_it * 1e3)
+    out = dict(
+        route="structured", gamma=float(gamma), dofs=A.shape[0], nnz=A.nnz,
+        slots=int(nsl), ad_bands=len(AD.offsets),
+        assembly_dump_s=t_asm, run_solver_s=t_run, setup_s=rep.t_setup,
+        solve_s=rep.t_solve, pass_iterations=list(rep.pass_iters),
+        iterations=its, converged=bool(rep.converged),
+        ms_per_iteration=ms_it, host_tail_ms_per_application=tail_ms,
+        host_tail_applications=tail["calls"],
+        host_tail_share=tail["s"] / max(rep.t_solve, 1e-9),
+        device_us_per_iteration=per_it, idle_share=idle,
+        launches=counts, true_rel_residual=true_rel,
+        tpu_record_iterations=TPU_RECORD.get(gamma),
+        window_levels=len(prec.fine.levels))
+    say(f"[scale structured gamma {float(gamma):g}] dofs {A.shape[0]} in "
+        f"{nsl} slots, AD {len(AD.offsets)} bands | assembly + dump "
+        f"{t_asm:.2f} s | set-up {rep.t_setup:.2f} s, solve "
+        f"{rep.t_solve:.3f} s, pass iterations {list(rep.pass_iters)} "
+        f"(TPU record {TPU_RECORD.get(gamma)} in all) converged "
+        f"{rep.converged} | {ms_it:.2f} ms per iteration: host tail "
+        f"{tail_ms:.2f} ms per application ({tail['calls']} applications,"
+        f" {out['host_tail_share']:.4f} of the solve), device busy "
+        f"{per_it} us per iteration, idle share {idle} | launches {counts}"
+        f" | true rel residual {true_rel:.3e}")
+    return out
+
+
+def run_gamma(dev, mesh_n, radius, gamma, tmp, route="algebraic"):
     from tpuamg_torch.io_utils import load_system, read_solution
     from tpuamg_torch.krylov import pcg
     from tpuamg_torch.problems import emi_3d1d, run_solver_3d1d
@@ -98,6 +196,10 @@ def run_gamma(dev, mesh_n, radius, gamma, tmp):
                    "-outdir", d, "-mesh_n", str(mesh_n)] + CURVE)
     t_asm = time.perf_counter() - t0
     say(f"[scale gamma {float(gamma):g}] assembly + dump {t_asm:.2f} s")
+    if route == "structured":
+        out = run_structured(dev, d, o, gamma, t_asm)
+        shutil.rmtree(d, ignore_errors=True)
+        return out
     built, make = [], tsolve.make_preconditioner
 
     def recording(*args, **kw):
@@ -106,7 +208,8 @@ def run_gamma(dev, mesh_n, radius, gamma, tmp):
     tsolve.make_preconditioner = recording
     try:
         t0 = time.perf_counter()
-        rep = run_solver_3d1d.main(["-indir", d, "-outdir", o], device=dev)
+        rep = run_solver_3d1d.main(["-indir", d, "-outdir", o, "-route",
+                                    "algebraic"], device=dev)
         t_run = time.perf_counter() - t0
     finally:
         tsolve.make_preconditioner = make
@@ -163,17 +266,24 @@ def main():
     if not torch.cuda.is_available():
         say("no CUDA device: torch_3d1d_scale.py runs only on the card")
         return 1
-    mesh_n = int(sys.argv[1]) if len(sys.argv) > 1 else 64
-    radius = float(sys.argv[2]) if len(sys.argv) > 2 else 0.05
-    gammas = tuple(sys.argv[3:]) or GAMMAS
+    argv = sys.argv[1:]
+    route = "algebraic"
+    if argv[:1] == ["--route"]:
+        route, argv = argv[1], argv[2:]
+    if route not in ("algebraic", "structured"):
+        say(f"--route {route}: algebraic or structured")
+        return 2
+    mesh_n = int(argv[0]) if len(argv) > 0 else 64
+    radius = float(argv[1]) if len(argv) > 1 else 0.05
+    gammas = tuple(argv[2:]) or GAMMAS
     dev = torch.device("cuda")
     say(nvidia_smi())
-    say(f"mesh_n {mesh_n} radius {radius:g} curve {' '.join(CURVE)} "
-        f"gammas {' '.join(gammas)}")
+    say(f"route {route} mesh_n {mesh_n} radius {radius:g} curve "
+        f"{' '.join(CURVE)} gammas {' '.join(gammas)}")
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
         for gamma in gammas:
-            rows.append(run_gamma(dev, mesh_n, radius, gamma, tmp))
+            rows.append(run_gamma(dev, mesh_n, radius, gamma, tmp, route))
     say(nvidia_smi())
     say(json.dumps({"torch_3d1d_scale": rows}))
     ok = all(r["converged"] and r["true_rel_residual"] <= 1e-6

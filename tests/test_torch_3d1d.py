@@ -27,9 +27,11 @@ def _one_torch_thread():
     workers sharing the cores, one intra-op thread each keeps them from
     spinning against each other."""
     import torch
+    from threadpoolctl import threadpool_limits
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api="blas"):     # the Schwarz inverses
+        yield
     torch.set_num_threads(n)
 
 
@@ -273,9 +275,21 @@ def test_in_process_solve(tmp_path):
 
 
 def test_keep_idofs_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TR.main(["-indir", str(tmp_path), "-outdir", str(tmp_path),
-                 "-keep_idofs", "1"], device="cpu")
+    """-keep_idofs acts on the structured route, whose idof stride blocks
+    need the tiled slot order: on a dump whose bulk is off its lattice
+    ("auto" falls back to Morton) it raises ValueError, as the JAX
+    package's setup_structured does.  (It runs on a lattice dump:
+    tests/test_torch_host_tail.py::test_run_solver_keep_idofs_runs.)"""
+    d = str(tmp_path) + "/"
+    assert T.main(["-dump", "1", "-mesh_n", "3", "-outdir", d]) == 0
+    crd = np.load(d + "coords.npy")
+    n3 = len(np.load(d + "idofs3d.npy"))
+    crd[:n3] += 1e-3 * np.random.default_rng(0).standard_normal((n3, 3))
+    np.save(d + "coords.npy", crd)
+    with pytest.raises(ValueError, match="keep_idofs"):
+        TR.main(["-indir", d, "-outdir", d, "-route", "structured",
+                 "-keep_idofs", "1", "-algebraic_below", "50"],
+                device="cpu")
 
 
 def test_entry_points_need_a_device_without_cuda(tmp_path, monkeypatch):

@@ -1096,7 +1096,7 @@ def test_algebraic_solve_on_card_matches_cpu(precond, method):
 def test_3d1d_pipeline_on_card_matches_cpu(tmp_path, gamma):
     """mesh_n 8, radius 0.2, the default synthetic neuron and
     input_metric.dat (CG, stop type 1, tol 1e-6): the card's solve
-    against the CPU's on the same dump.  x to 1e-10 at gamma 1 and 1e-8
+    against the CPU's on the same dump, both on the algebraic route.  x to 1e-10 at gamma 1 and 1e-8
     at gamma 1e8: there one unit of rounding in each product of A and M
     moves x by 3.3e-10 .. 1.1e-9 on the CPU (cond(A) 1.6e9;
     scripts/torch_rounding_floor.py 3d1d 8), and the card differs from
@@ -1107,13 +1107,192 @@ def test_3d1d_pipeline_on_card_matches_cpu(tmp_path, gamma):
     d, o, oc = (str(tmp_path / k) + "/" for k in ("d", "o", "oc"))
     assert emi_3d1d.main(["-gamma", gamma, "-radius", "0.2", "-dump", "1",
                           "-outdir", d, "-mesh_n", "8"]) == 0
-    got = run_solver_3d1d.main(["-indir", d, "-outdir", o], device=dev)
-    ref = run_solver_3d1d.main(["-indir", d, "-outdir", oc], device="cpu")
+    alg = ["-route", "algebraic"]      # the card's default is structured
+    got = run_solver_3d1d.main(["-indir", d, "-outdir", o] + alg,
+                               device=dev)
+    ref = run_solver_3d1d.main(["-indir", d, "-outdir", oc] + alg,
+                               device="cpu")
     assert got.converged and ref.converged
     assert got.niters == ref.niters <= 25, (got.niters, ref.niters)
     assert got.executed <= got.niters + 1
     err = np.abs(got.x - ref.x).max() / np.abs(ref.x).max()
     assert err <= (1e-10 if gamma == "1" else 1e-8), err
+    A, b, _, _ = load_system(d)
+    x = read_solution(o)
+    assert np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# K1's wide entry and the structured 3D-1D route
+# ---------------------------------------------------------------------------
+
+def _wide_offsets(nd, n, seed):
+    """nd distinct sorted offsets: 0, +-(n + 5) (rows that read nothing)
+    and the rest drawn from +-max(3n/2, nd)."""
+    rng = np.random.default_rng(seed)
+    r = max(3 * n // 2, nd)
+    rest = np.setdiff1d(np.arange(-r, r + 1), [0, n + 5, -n - 5])
+    offs = np.concatenate([[0, n + 5, -n - 5],
+                           rng.choice(rest, nd - 3, replace=False)])
+    return tuple(int(o) for o in np.sort(offs))
+
+
+@pytest.mark.parametrize("nd", [65, 200, 1024, 3000])
+@pytest.mark.parametrize("n", [1000, 50_000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+def test_dia_wide_entry_matches_plain(nd, n, dtype, residual):
+    """More than kernels.MAX_DIAGS bands: K1's wide entry (offsets from a
+    device array, staged in shared memory 2048 at a time: 3000 takes two
+    tiles) against dia_spmv_plain, offsets beyond +-n included, at 1e-5
+    relative (float32 sums in another order); one wide launch, none of
+    the <=64 entry."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.sparse.dia_kernels import (KernelDIA, dia_spmv_plain)
+    dev = _card()
+    offs = _wide_offsets(nd, n, nd + n)
+    assert len(offs) == nd and max(abs(o) for o in offs) > n
+    planes = _random_planes(n, nd, dtype, 3).to(dev)
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32).to(dev)
+    b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32
+                        ).to(dev) if residual else None
+    op = KernelDIA(offs, planes, (n, n), 0)
+    kernels.reset_launches()
+    y = op.residual(x, b) if residual else op.matvec(x)
+    torch.cuda.synchronize()
+    ref = dia_spmv_plain(offs, planes, x, b)
+    err = float((y - ref).abs().max() / ref.abs().max())
+    assert err < 1e-5, err
+    name = "dia_residual_wide" if residual else "dia_spmv_wide"
+    assert dict(kernels.LAUNCHES) == {name: 1}
+    dev_offs = op.offsets_dev()
+    assert dev_offs.dtype == torch.int32 and dev_offs.device.type == "cuda"
+    op.matvec(x)
+    assert op.offsets_dev() is dev_offs       # uploaded once
+
+
+def test_dia_64_bands_take_the_narrow_entry():
+    """64 bands: the <=64 entry (offsets by value), no wide launch."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.sparse.dia_kernels import KernelDIA, dia_spmv_plain
+    dev = _card()
+    n, offs = 20_000, tuple(range(-32, 32))
+    planes = _random_planes(n, 64, torch.float32, 5).to(dev)
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal(n),
+                        dtype=torch.float32).to(dev)
+    op = KernelDIA(offs, planes, (n, n), 0)
+    kernels.reset_launches()
+    y = op.matvec(x)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"dia_spmv": 1}
+    assert op.offsets_dev() is None
+    ref = dia_spmv_plain(offs, planes, x)
+    assert float((y - ref).abs().max() / ref.abs().max()) < 1e-5
+
+
+def test_dia_wide_entry_rejects_bad_input():
+    from tpuamg_torch.sparse.dia_kernels import dia_spmv, offsets_tensor
+    dev = _card()
+    offs = tuple(range(-40, 40))
+    planes = torch.zeros((80, 100), device=dev)
+    x = torch.zeros(100, device=dev)
+    with pytest.raises(TypeError):
+        dia_spmv(offs, planes, x.double())
+    with pytest.raises(ValueError):
+        dia_spmv(offs, planes, x, x_pad=2)
+    with pytest.raises(ValueError):
+        dia_spmv(offs, planes[:, :50], x)
+    with pytest.raises(ValueError):
+        dia_spmv(offs, planes, x, offsets_dev=offsets_tensor(offs[:-1],
+                                                             dev))
+
+
+def test_structured_level_k3_matches_plain():
+    """The bidomain 2D system (n=63, gamma 1e6) on the structured
+    hierarchy (structured_coords, no interface footprint, float32): every
+    window level whose A and C have at most kernels.MAX_DIAGS bands takes
+    FusedChebSmoother (K3, one launch per application), the others
+    DiaChebyshevSmoother over KernelDIA; each K3 level's smooth_residual
+    against cheb_sweep_plain at the phase-7 limit (1e-5, or twice the
+    plain float32 sweep's own distance from float64)."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.amg.structured import (DiaChebyshevSmoother,
+                                             setup_structured)
+    from tpuamg_torch.config import PRESETS
+    from tpuamg_torch.fem import mms
+    from tpuamg_torch.problems.bidomain import Params, get_mesh, get_system
+    from tpuamg_torch.sparse.dia_kernels import (FusedChebSmoother,
+                                                 cheb_sweep_plain)
+    dev = _card()
+    p = Params(2.0, 3.0, 1e6)
+    mesh = get_mesh(63, 2)      # 64 x 64 vertices: Morton rank = code
+    A, _, _, _ = get_system(mesh, mms.setup_bidomain_mms(p, 2), p)
+    coords = np.concatenate([mesh.vertices, mesh.vertices])
+    from dataclasses import replace
+    prm = replace(PRESETS["metric_schwarz"], dtype="float32",
+                  cycle_type="v", coarse_dof=200)
+    prec, _, _ = setup_structured(A, coords, prm, dtype=torch.float32,
+                                  device=dev)
+    k3 = 0
+    rng = np.random.default_rng(7)
+    for L in prec.levels:
+        sm = L.smoother
+        wide = len(L.A.offsets) > kernels.MAX_DIAGS
+        assert isinstance(sm, DiaChebyshevSmoother if wide
+                          else FusedChebSmoother)
+        if wide:
+            continue
+        k3 += 1
+        n = L.A.shape[0]
+        x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                            device=dev) * L.mask
+        b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                            device=dev) * L.mask
+        before = kernels.LAUNCHES["cheb_sweep"]
+        xk, rk = sm.smooth_residual(L.A, x, b, 1)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["cheb_sweep"] == before + 1
+        xp, rp = cheb_sweep_plain(sm.offsA, sm.planesA, sm.offsC,
+                                  sm.planesC, x, b, sm.theta, sm.coefs,
+                                  sm.degree, 1, True)
+        x64, _ = cheb_sweep_plain(
+            sm.offsA, sm.planesA.double(), sm.offsC, sm.planesC.double(),
+            x.double(), b.double(), sm.theta, sm.coefs, sm.degree, 1, True)
+        floor = float(torch.linalg.vector_norm(xp.double() - x64)
+                      / torch.linalg.vector_norm(x64))
+        err = float(torch.linalg.vector_norm(xk - xp)
+                    / torch.linalg.vector_norm(xp))
+        assert err <= max(1e-5, 2 * floor), (n, err, floor)
+    assert k3 > 0
+
+
+def test_structured_3d1d_on_card_matches_cpu(tmp_path):
+    """run_solver_3d1d's structured route (the card's default with
+    coords.npy: float32 storage, float64 Krylov, the factored outer
+    operator with AD through K1, refine=3, the host tail) at mesh_n 8,
+    gamma 1e8, on the card against the same keywords on the CPU:
+    iterations within 1 per refine pass, true residual <= 1e-6; K1 ran
+    on the outer operator."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.io_utils import load_system, read_solution
+    from tpuamg_torch.problems import emi_3d1d, run_solver_3d1d
+    dev = _card()
+    d, o, oc = (str(tmp_path / k) + "/" for k in ("d", "o", "oc"))
+    assert emi_3d1d.main(["-gamma", "100000000", "-radius", "0.2", "-dump",
+                          "1", "-outdir", d, "-mesh_n", "8"]) == 0
+    kernels.reset_launches()
+    got = run_solver_3d1d.main(["-indir", d, "-outdir", o], device=dev)
+    launches = dict(kernels.LAUNCHES)
+    ref = run_solver_3d1d.main(["-indir", d, "-outdir", oc, "-route",
+                                "structured"], device="cpu")
+    assert got.route == ref.route == "structured"
+    assert got.converged and ref.converged
+    assert len(got.pass_iters) == len(ref.pass_iters)
+    assert all(abs(a - c) <= 1 for a, c in zip(got.pass_iters,
+                                                ref.pass_iters))
+    assert launches.get("dia_spmv", 0) + launches.get("dia_spmv_wide", 0) \
+        > 0, launches
     A, b, _, _ = load_system(d)
     x = read_solution(o)
     assert np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b) <= 1e-6

@@ -33,11 +33,13 @@ import tpuamg_torch.config, tpuamg_torch.io_utils.datfile
 import tpuamg_torch.io_utils.dump, tpuamg_torch.io_utils.vtk
 import tpuamg_torch.fem.dofs, tpuamg_torch.fem.coupling
 import tpuamg_torch.problems.emi_3d1d, tpuamg_torch.problems.run_solver_3d1d
+import tpuamg_torch.native.tail
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'tpuamg'))
 print('BAD', bad)
 print('LIB', tpuamg_torch.kernels._lib)
 print('NATIVE', tpuamg_torch.native._lib)
+print('TAIL', tpuamg_torch.native.tail._lib)
 """
 
 
@@ -49,6 +51,7 @@ def test_import_loads_neither_jax_nor_tpuamg():
     assert "BAD []" in out, out
     assert "LIB None" in out, out      # nothing built or loaded at import
     assert "NATIVE None" in out, out
+    assert "TAIL None" in out, out
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):
@@ -80,4 +83,14 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
         device_mesh()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         distributed_grid_solve(A, np.ones(4), (2, 2), F=1)
+    from tpuamg_torch.amg.structured import (setup_structured,
+                                             structured_system)
+    crd = np.arange(8.0).reshape(4, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        setup_structured(A, crd)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        structured_system(A, np.arange(4), 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_system(A, np.ones(4), "metric_mono", (4,),
+                     structured_coords=crd)
     assert KernelDIA.from_host(A, device="cpu").planes.device.type == "cpu"

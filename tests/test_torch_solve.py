@@ -143,9 +143,10 @@ def test_routing_rule(params, dtype, pallas, route):
 
 
 def test_unported_branches_raise():
-    """The algebraic branch (no grid, and -precond diag with one) and
-    MINRES on the grid branch run; the structured branch (item 10) still
-    raises."""
+    """The algebraic branch (no grid, and -precond diag with one), MINRES
+    on the grid branch and the structured branch (item 10) run; the
+    structured branch's unported footprint solvers, rank1g and deflate
+    (item 13), raise."""
     A, b, sizes, _ = _system(1e2, n=8)
     idofs = np.arange(sizes[0], len(b))
     rep = tsolve.solve_system(A, b, "metric_mono", sizes, idofs=idofs,
@@ -159,10 +160,18 @@ def test_unported_branches_raise():
     rep = tsolve.solve_system(A, b, "metric_mono", sizes, grid=((9, 9), 2),
                               method="minres", device="cpu")
     assert rep.converged and rep.route == "c" and _rel(A, b, rep.x) < 1e-6
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsolve.solve_system(A, b, "metric_mono", sizes,
-                            structured_coords=np.zeros((len(b), 2)),
-                            device="cpu")
+    mesh = get_mesh(8, 2)
+    coords = np.concatenate([mesh.vertices, mesh.vertices])
+    rep = tsolve.solve_system(A, b, "metric_mono", sizes, idofs=idofs,
+                              structured_coords=coords, pallas=False,
+                              device="cpu")
+    assert rep.converged and rep.route == "structured"
+    assert _rel(A, b, rep.x) < 1e-6
+    for fps in ("rank1g", "deflate"):
+        with pytest.raises(ValueError, match="item 13"):
+            tsolve.solve_system(A, b, "metric_mono", sizes,
+                                structured_coords=coords, fp_solver=fps,
+                                device="cpu")
 
 
 # ---------------------------------------------------------------------------

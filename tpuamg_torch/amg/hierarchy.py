@@ -23,8 +23,11 @@ operators, the level smoothers (multicolor GS, Jacobi, Chebyshev, interface
 Schwarz) and a float64 dense coarse inverse — and ships them to the device
 as ELL matrices and index tensors.
 
-The split application of the host-tail hybrids (``cycle_down`` /
-``cycle_up``) is ROADMAP Queue 1 item 9 and is not here yet.
+The split application (``cycle_down`` / ``cycle_up``) runs a V-cycle
+(maxit=1, zero initial guess) in two halves around a coarse boundary, so
+that the structured path's host-tail hybrid
+(``amg.structured.HostTailHybrid``, driven by ``krylov.cg.pcg_split``)
+can run the coarse tail on the host between them.
 """
 from __future__ import annotations
 
@@ -206,6 +209,57 @@ class MGPreconditioner:
             L = self.levels[i]
             z = L.smoother.smooth(L.A, torch.zeros_like(rs[i]), rs[i], 1)
             ec = z + L.prolong(ec)
+        return ec
+
+    # -- split application (host-tail hybrids) ------------------------
+    # For cycle='v', cycle_up(carry, tail(rc)) equals matvec(b) exactly
+    # when the tail preconditioner equals the levels this object would
+    # hold below the boundary (same recursion, zero initial coarse guess).
+    def cycle_down(self, b):
+        """Pre-smooth and restrict through every level.
+
+        Returns (carry, rc): carry = the per-level (x, b) tuples for
+        cycle_up, rc = the residual restricted to the coarse boundary
+        (the tail's level-0 size)."""
+        xs, bs = [], []
+        for L in self.levels:
+            ldt = self._level_dtype(L)
+            if ldt is not None and b.dtype != ldt:
+                b = b.to(ldt)
+            x = torch.zeros_like(b)
+            if hasattr(L.smoother, "smooth_residual"):
+                x, r = L.smoother.smooth_residual(L.A, x, b,
+                                                  self.presmooth)
+            else:
+                x = L.smoother.smooth(L.A, x, b, self.presmooth)
+                r = L.A.residual(x, b)
+            xs.append(x)
+            bs.append(b)
+            b = L.restrict(r)
+        return (tuple(xs), tuple(bs)), b
+
+    def cycle_up(self, carry, ec):
+        """Prolong and post-smooth back up from the coarse correction."""
+        xs, bs = carry
+        for i in reversed(range(len(self.levels))):
+            L = self.levels[i]
+            b, x = bs[i], xs[i]
+            ec = ec.to(b.dtype)
+            if self.coarse_scaling and i + 1 < len(self.levels):
+                Ac = self.levels[i + 1].A
+                dot = _dot_of(Ac)
+                rc = bs[i + 1]
+                denom = dot(ec, Ac.matvec(ec))
+                num = dot(rc, ec)
+                alpha = torch.where(
+                    denom > 0,
+                    torch.clamp(num / (denom + 1e-300), 0.0, 2.0),
+                    torch.ones_like(denom))
+                ec = alpha * ec
+            x = x + L.prolong(ec)
+            x = L.smoother.smooth(L.A, x, b, self.postsmooth,
+                                  reverse=True)
+            ec = x
         return ec
 
     def matvec(self, b):

@@ -55,6 +55,75 @@ inline int dia_sweep(const void* planes, int planes_bf16, const void* x,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The wide entry: any band count.  The offsets stay in a device int32
+// array that the caller uploaded once (KernelDIA keeps it with the
+// planes); every block stages them in shared memory, kWideTile at a time
+// (8 KB), and each thread loops over them for its row, in the stored
+// diagonal order, as dia_row does.  The row loop is the same as the <=64
+// entry's; only where the offsets live differs (kernel parameters hold
+// 4 KB at most, and Offsets by value would cost every launch of the <=64
+// entry that space).  Threads past the last row stay to the end, because
+// every thread of a block meets each tile's barriers.
+//
+// Replaces the same TPU kernels as dia_sweep_kernel, at the band counts
+// of the structured 3D-1D path: tpuamg/sparse/dia_pallas.py:_spmv_kernel
+// and :_residual_kernel behind maybe_pdia (tpuamg/amg/structured.py:
+// 910-912, 944-948, 1097-1098, 1108-1109; dia_max_offsets=1024).  Bound on
+// an H100: bytes, nd * n * plane_bytes + 4 n [x] + 4 n [y] (+ 4 n [b]),
+// over 3.35 TB/s; at 2 flops per 4 (f32) plane bytes it is far from the
+// flop bound.  x is read nd times at shifted windows; with hundreds of
+// bands those windows span more than L1, so the x reads lean on L2.
+constexpr int kWideTile = 2048;
+
+template <typename P>
+__global__ void __launch_bounds__(kThreads)
+dia_wide_kernel(const P* __restrict__ planes, const float* __restrict__ x,
+                const float* __restrict__ b, float* __restrict__ y,
+                long long n, int nd, const int* __restrict__ offsets) {
+  __shared__ int s_off[kWideTile];
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool row = i < n;
+  float acc = 0.f;
+  for (int base = 0; base < nd; base += kWideTile) {
+    const int m = min(kWideTile, nd - base);
+    __syncthreads();
+    for (int d = threadIdx.x; d < m; d += blockDim.x)
+      s_off[d] = offsets[base + d];
+    __syncthreads();
+    if (!row) continue;
+#pragma unroll 4
+    for (int d = 0; d < m; ++d) {
+      const long long j = i + s_off[d];
+      const float xv = (j >= 0 && j < n) ? __ldg(x + j) : 0.f;
+      acc = fmaf(load_f32(planes, static_cast<long long>(base + d) * n + i),
+                 xv, acc);
+    }
+  }
+  if (row) y[i] = b != nullptr ? __ldg(b + i) - acc : acc;
+}
+
+inline int dia_sweep_wide(const void* planes, int planes_bf16,
+                          const void* x, const void* b, void* y, long long n,
+                          int nd, const int* dev_offsets, void* stream) {
+  if (nd < 0 || (nd > 0 && dev_offsets == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* bf = static_cast<const float*>(b);
+  float* yf = static_cast<float*>(y);
+  if (planes_bf16) {
+    dia_wide_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(planes), xf, bf, yf, n, nd,
+        dev_offsets);
+  } else {
+    dia_wide_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<const float*>(planes), xf, bf, yf, n, nd, dev_offsets);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace tpuamg
 
 // y = A x (b == NULL) or y = b - A x.  planes: (nd, n) diagonal-major,
@@ -79,4 +148,15 @@ extern "C" int tpuamg_dia_sweep_pad(const void* planes, int planes_bf16,
                                     void* stream) {
   return tpuamg::dia_sweep(planes, planes_bf16, x, b, y, n, x_pad, nd,
                            offsets, stream);
+}
+
+// The wide entry (any nd): as tpuamg_dia_sweep, but the offsets are a
+// DEVICE array of nd int32 values, read by every block into shared
+// memory, kWideTile at a time.
+extern "C" int tpuamg_dia_sweep_wide(const void* planes, int planes_bf16,
+                                     const void* x, const void* b, void* y,
+                                     long long n, int nd,
+                                     const int* dev_offsets, void* stream) {
+  return tpuamg::dia_sweep_wide(planes, planes_bf16, x, b, y, n, nd,
+                                dev_offsets, stream);
 }

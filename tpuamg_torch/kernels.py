@@ -50,6 +50,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "tpuamg_dia_sweep": (_P, _I, _P, _P, _P, _LL, _I, _P, _P),
     "tpuamg_dia_sweep_pad": (_P, _I, _P, _LL, _P, _P, _LL, _I, _P, _P),
+    "tpuamg_dia_sweep_wide": (_P, _I, _P, _P, _P, _LL, _I, _P, _P),
     "tpuamg_cheb_step": (_P, _I, _I, _P, _P, _I, _I, _P, _P, _LL, _P, _P,
                          _P, _P, _LL, _I, _I, _F, _F, _P),
     "tpuamg_cheb_apply": (_P, _I, _P, _P, _P, _LL, _I, _P, _I, _F, _F, _P),

@@ -8,6 +8,13 @@ stop types 1/2/3, and a callback.  The loop runs on the tensors' device
 and keeps every scalar there; the host reads the per-iteration statistics
 once per chunk to test convergence, and returns the iterate of the first
 iteration that meets the test.
+
+``pcg_split`` is the counterpart of the JAX package's PCG over a split
+V-cycle with a host step (the structured path's host tail): per iteration
+the device runs the outer matvec, the x/r updates and the fine levels
+down to the coarse boundary; the host applies the float64 tail to the
+boundary residual; the device prolongs back up and completes the CG
+recurrence.
 """
 from __future__ import annotations
 
@@ -228,3 +235,91 @@ def pcg(A, b, M=None, x0=None, tol=1e-8, maxiter=500, callback=None,
                     residuals=res, true_residuals=true,
                     alphas=np.asarray(alphas), betas=np.asarray(betas),
                     executed=executed, host_reads=reads)
+
+
+def pcg_split(A, b, fine, tail_apply, x0=None, tol=1e-8, maxiter=500,
+              callback=None, stop_type=2, ec_dtype=None):
+    """PCG whose preconditioner is a split V-cycle with a HOST step.
+
+    Per iteration: Ap, alpha, x and r on the device, ``fine.cycle_down(r)``
+    to the coarse boundary; one device-to-host copy of the boundary
+    residual rc; ``tail_apply(rc)`` on the host (numpy float64 in and
+    out); one upload of ec; ``fine.cycle_up`` and the CG update on the
+    device; then one read of the iteration's statistics (alpha, beta,
+    sqrt(r.z), ||r||, ||x||) to test convergence.  Numerically pcg with
+    chunk=1 over the unified hybrid for cycle='v', maxit=1.
+
+    fine: MGPreconditioner of the device levels (cycle_down / cycle_up;
+    it may have none).  tail_apply: host callable rc -> ec in float64.
+    ec_dtype: upload dtype of ec (default the boundary residual's dtype,
+    which the unified cycle casts it to anyway).  Returns CGResult, with
+    executed = niters (the loop reads every iteration) and host_reads
+    counting the statistics reads."""
+    Afn = A.matvec if hasattr(A, "matvec") else A
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    tiny = _TINY if b.dtype == torch.float64 else 1e-30
+    maxiter = int(maxiter)
+
+    def tail(rc):
+        nonlocal ec_dtype
+        if ec_dtype is None:
+            ec_dtype = rc.dtype
+        ec = tail_apply(rc.double().cpu().numpy())
+        return torch.as_tensor(np.asarray(ec), dtype=ec_dtype).to(rc.device)
+
+    def up(carry, ec, r):
+        z = fine.cycle_up(carry, ec).to(r.dtype)
+        return z, _dot(r, z)
+
+    r = b - Afn(x0)
+    carry, rc = fine.cycle_down(r)
+    z, rz = up(carry, tail(rc), r)
+    p = z
+    x = x0
+    init = torch.stack([rz, _norm(r), _norm(b)]).double().cpu().numpy()
+    reads = 1
+    res0 = float(np.sqrt(max(init[0], 0.0)))
+    res_hist = [res0]
+    true_hist = [float(init[1])]
+    norm_b = float(init[2]) if stop_type == 1 else 0.0
+    alphas, betas = [], []
+    k = 0
+    if stop_type == 1:
+        converged = true_hist[0] <= tol * norm_b or norm_b == 0.0
+    else:
+        converged = res0 == 0.0
+    while not converged and k < maxiter:
+        Ap = Afn(p)
+        alpha = rz / (_dot(p, Ap) + tiny)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        carry, rc = fine.cycle_down(r)
+        z, rz_new = up(carry, tail(rc), r)
+        beta = rz_new / (rz + tiny)
+        p = z + beta * p
+        rz = rz_new
+        o = torch.stack([alpha.to(r.dtype), beta, torch.sqrt(rz.abs()),
+                         _norm(r), _norm(x)]).double().cpu().numpy()
+        reads += 1
+        if not np.isfinite(o[2]):
+            break               # breakdown: stop, report as-is
+        alphas.append(o[0])
+        betas.append(o[1])
+        res_hist.append(o[2])
+        true_hist.append(o[3])
+        k += 1
+        if stop_type == 1:
+            converged = o[3] <= tol * norm_b
+        elif stop_type == 3:
+            converged = o[3] <= tol * max(o[4], _TINY)
+        else:
+            converged = o[2] <= tol * res0
+    true = np.asarray(true_hist)
+    if callback is not None:
+        for i in range(1, k + 1):
+            callback(i, None, true[i])
+    return CGResult(x=x, niters=k, converged=bool(converged),
+                    residuals=np.asarray(res_hist), true_residuals=true,
+                    alphas=np.asarray(alphas), betas=np.asarray(betas),
+                    executed=k, host_reads=reads)

@@ -18,6 +18,10 @@ JAX package.
 
 The two routes build *different* (both valid) aggregates and colors, so
 the port matches the JAX package only when both take the same route.
+
+``tailkit.cpp`` (also a copy) is the host tail's V-cycle executor; it
+builds the same way, with OpenMP, into its own library
+(``native/tail.py``).
 """
 from __future__ import annotations
 
@@ -41,25 +45,26 @@ _lib = None
 _failed = None
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libamgkit-{h.hexdigest()[:16]}.so"
+def library_path(source=SOURCE, flags=CXX_FLAGS) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(source.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile amgkit.cpp (skipped when the library for this exact source
-    exists); raises on failure.  Fills BUILD_INFO."""
+def build(source=SOURCE, flags=CXX_FLAGS, info=BUILD_INFO) -> Path:
+    """Compile one source (amgkit.cpp by default) into _build/ (skipped
+    when the library for this exact source and these flags exists);
+    raises on failure.  Fills info."""
     import time
-    out = library_path()
+    out = library_path(source, flags)
     if out.is_file():
-        BUILD_INFO.update(seconds=0.0, library=str(out), cached=True)
+        info.update(seconds=0.0, library=str(out), cached=True)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.stem}-{os.getpid()}.tmp.so")
     t0 = time.perf_counter()
     try:
-        p = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+        p = subprocess.run(["g++", *flags, "-o", str(tmp), str(source)],
                            capture_output=True, text=True,
                            timeout=BUILD_TIMEOUT_S)
         if p.returncode != 0:
@@ -67,8 +72,8 @@ def build() -> Path:
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, library=str(out),
-                      cached=False)
+    info.update(seconds=time.perf_counter() - t0, library=str(out),
+                cached=False)
     return out
 
 

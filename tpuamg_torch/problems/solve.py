@@ -35,8 +35,20 @@ present; ``device`` (None = the CUDA card, "cpu" = the plain versions)
 only decides how the chosen route runs.
 
 MINRES and GMRES run on routes (b) and (c) of the grid branch, as in the
-JAX package.  The structured branch (``structured_coords``) is ROADMAP
-Queue 1 item 10 and raises NotImplementedError.
+JAX package.
+
+The structured branch (``structured_coords``, no grid) builds the
+gather-free hierarchy of ``amg.structured.setup_structured`` (slot
+orders, window levels, footprint operator and smoothers, an optional
+float64 algebraic tail) and solves in slot space.  The outer operator is
+``structured_system``'s DIA (K1 for float32 data) or, with ``coupling``
+= (gamma, Pi, Mq), the factored metric form of ``_split_metric_operator``
+(AD in ``dtype`` through K1, R and R^T float64 ELL), under which the
+Krylov vectors default to float64.  With ``host_tail`` (and
+``algebraic_below``, method "cg") the tail runs on the host and
+``krylov.cg.pcg_split`` drives the split cycle.  ``fp_solver="rank1g"``
+and ``"deflate"`` are not ported (ROADMAP Queue 1 item 13) and raise
+ValueError.
 """
 from __future__ import annotations
 
@@ -49,9 +61,9 @@ import torch
 from .. import kernels
 from ..amg.hierarchy import as_operator, setup_amg
 from ..config import AMGParameters, PRESETS
-from ..krylov import gmres, minres, pcg
+from ..krylov import gmres, minres, pcg, pcg_split
 from ..sparse.device import ELL, matvec_op
-from ..sparse.host import HostCSR
+from ..sparse.host import HostCSR, bmat
 
 # Above this many dofs route (a) gives way to route (b).  The number is a
 # TPU measurement (docs/PERF_NOTES.md:156-168: the chunked kernel won at
@@ -166,13 +178,76 @@ def _dtype_name(dt):
     return str(dt).replace("torch.", "")
 
 
+class SplitMetricOperator:
+    """The outer operator in factored metric form,
+    A x = AD x + gamma R^T Mq (R x),  R = [-Pi, I]  (slot space).
+
+    Entrywise storage of A at large gamma cancels catastrophically: the
+    metric rows' products are ~1e5x smaller than their gamma-scaled terms,
+    so f32-stored entries give O(40%) relative error at gamma 1e8.  In
+    factored form every factor is O(1)-conditioned and the cancellation
+    R x = x1 - Pi x3 happens between float64 Krylov-vector entries.
+    AD (gamma-free, narrow) is stored in ``dtype`` and fed x cast to its
+    dtype (a K1 operator for float32); R and R^T are float64 ELL whatever
+    ``dtype`` is (f32-rounded R leaves a fake residual that gamma
+    amplifies near the gamma-null space); Mq is in ``dtype``."""
+
+    def __init__(self, AD, R, Mq, RT, gamma):
+        self.AD, self.R, self.Mq, self.RT = AD, R, Mq, RT
+        self.gamma = float(gamma)
+        self.shape = AD.shape
+
+    def matvec(self, x):
+        u = self.R.matvec(x)
+        y = self.AD.matvec(x.to(self.AD.dtype)).to(x.dtype)
+        return y + self.gamma * self.RT.matvec(self.Mq.matvec(u))
+
+
+def _split_metric_operator(A, coupling, sizes, slots, nsl, dtype, pallas,
+                           device):
+    """SplitMetricOperator for A = AD + gamma R^T Mq R (the dumped
+    coupling (gamma, Pi, Mq)), in the slot space of the structured
+    hierarchy."""
+    from ..amg.structured import structured_system
+    g, Pi, Mq = coupling
+    _, n1 = sizes
+    R = bmat([[Pi.scale(-1.0), HostCSR.eye(n1)]])
+    AD = A.add(R.T.matmat(Mq.matmat(R)), beta=-g)
+    # prune the cancelled coupling entries (exact zeros up to f64
+    # roundoff), which would widen the DIA offset set
+    r_, c_, v_ = AD.to_coo()
+    keep = np.abs(v_) > 1e-10 * np.abs(v_).max()
+    AD = HostCSR.from_coo(r_[keep], c_[keep], v_[keep], AD.shape)
+    ADop = structured_system(AD, slots, nsl, dtype=dtype, pallas=pallas,
+                             device=device)
+    ro, co, vo = R.to_coo()
+    Rs = HostCSR.from_coo(ro, np.asarray(slots)[co], vo, (n1, nsl))
+    return SplitMetricOperator(
+        ADop, ELL.from_host(Rs, dtype=torch.float64, device=device),
+        ELL.from_host(Mq, dtype=dtype, device=device),
+        ELL.from_host(Rs.T, dtype=torch.float64, device=device), g)
+
+
+def _cast_matvec(op, vec_dt):
+    """op.matvec for vectors of vec_dt: K1 (a KernelDIA, alone or as a
+    StructuredOp's DIA part) takes float32 x, so other vectors are cast to
+    it and back; the plain classes compute in the vectors' dtype."""
+    from ..sparse.dia_kernels import KernelDIA
+    if isinstance(getattr(op, "dia", op), KernelDIA) \
+            and vec_dt != torch.float32:
+        return lambda x: op.matvec(x.to(torch.float32)).to(x.dtype)
+    return op.matvec
+
+
 def solve_system(A: HostCSR, b, precond: str, sizes, idofs=None,
                  params: AMGParameters = None, blocks=None,
                  tol=1e-8, maxiter=500, method="cg", stop_type=2,
                  dtype=torch.float64, callback=None,
-                 grid=None, structured_coords=None,
+                 grid=None, structured_coords=None, structured_order=None,
+                 algebraic_below=0, fp_solver="exact", coupling=None,
                  pallas=None, refine=0, inner_tol=1e-6,
                  timing_runs=1, chunk=None, krylov_dtype=None,
+                 host_tail=False, keep_idofs=0,
                  device=None) -> SolveReport:
     """Solve A x = b with a multigrid-preconditioned Krylov method.
 
@@ -182,6 +257,14 @@ def solve_system(A: HostCSR, b, precond: str, sizes, idofs=None,
     ``blocks`` the diagonal blocks of "diag", and ``krylov_dtype`` the
     dtype of the Krylov vectors (default ``dtype``: f64 vectors over an
     f32 hierarchy promote every recurrence to f64).
+
+    structured_coords: (n, d) dof coordinates — the structured branch
+    (module docstring), with ``structured_order`` ("morton" by default,
+    "hem", "hem_banded[:W]", "tiled", "auto"), ``algebraic_below``,
+    ``fp_solver`` ("exact" or "rank1"), ``keep_idofs`` and ``host_tail``
+    as in ``amg.structured.setup_structured``, and ``coupling`` =
+    (gamma, Pi, Mq) for the factored outer operator.  ``idofs`` are the
+    interface dofs there too.  The route is "structured".
 
     grid: (dims, F) — the structured-grid hierarchy, routes (a)-(c) in
     the module docstring.  The grid branch ignores ``idofs`` and
@@ -212,17 +295,20 @@ def solve_system(A: HostCSR, b, precond: str, sizes, idofs=None,
 
     device: None = the CUDA card (an error without one); "cpu" runs the
     plain versions."""
-    if structured_coords is not None and grid is None \
-            and precond not in ("diag",):
-        raise NotImplementedError(
-            "the structured hierarchy (amg/structured.setup_structured) "
-            "is ROADMAP Queue 1 item 10")
     dev = kernels.resolve_device(device)
     dt = _torch_dtype(dtype)
     fp = None          # whole-chunk fused PCG runner (grid route (a))
+    hybrid = None      # HostTailHybrid (structured branch, host_tail)
     slots = None       # the grid's dof -> slot map
     route = ""
-    if grid is not None and precond not in ("diag",):
+    if structured_coords is not None and grid is None \
+            and precond not in ("diag",):
+        (hybrid, Aop, M, slots, nsl, t_setup, vec_dt) = _structured_branch(
+            A, sizes, idofs, params, dt, method, structured_coords,
+            structured_order, algebraic_below, fp_solver, coupling, pallas,
+            krylov_dtype, host_tail, keep_idofs, dev)
+        route = "structured"
+    elif grid is not None and precond not in ("diag",):
         (fp, prec, Aop, M, slots, nsl, route, t_setup) = _grid_branch(
             A, grid, params, dt, method, pallas, krylov_dtype, dev)
         vec_dt = dt
@@ -255,6 +341,10 @@ def solve_system(A: HostCSR, b, precond: str, sizes, idofs=None,
             from ..amg.grid_fused import pcg_fused
             r = pcg_fused(fp, bdev, tol=ktol, maxiter=miter,
                           callback=callback, stop_type=stop_type)
+        elif method == "cg" and hybrid is not None:
+            r = pcg_split(Aop, bdev, hybrid.fine, hybrid.tail_apply,
+                          tol=ktol, maxiter=miter, callback=callback,
+                          stop_type=stop_type)
         elif method == "cg":
             r = pcg(Aop, bdev, M=M, tol=ktol, maxiter=miter,
                     callback=callback, stop_type=stop_type,
@@ -316,6 +406,54 @@ def solve_system(A: HostCSR, b, precond: str, sizes, idofs=None,
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _structured_branch(A, sizes, idofs, params, dt, method, coords, order,
+                       algebraic_below, fp_solver, coupling, pallas,
+                       krylov_dtype, host_tail, keep_idofs, dev):
+    """The structured branch's set-up: returns (hybrid, Aop, M, slots,
+    nsl, t_setup, vec_dt); hybrid is the HostTailHybrid (M None) or
+    None."""
+    import warnings
+    from ..amg.structured import (HostTailHybrid, setup_structured,
+                                  structured_system)
+    if fp_solver in ("rank1g", "deflate"):
+        raise ValueError(
+            f"fp_solver={fp_solver!r} is not ported (ROADMAP Queue 1 item "
+            f"13: DiagRank1Smoother and the gamma-subspace deflation)")
+    prm = params or PRESETS["metric_schwarz"]
+    wanted = _dtype_name(dt)
+    if prm.dtype != wanted:
+        prm = replace(prm, dtype=wanted)
+    # the host tail is a split V-cycle under PCG; other methods take the
+    # unified tail, loudly, as in the JAX package
+    use_host_tail = bool(host_tail and algebraic_below and method == "cg")
+    if host_tail and algebraic_below and method != "cg":
+        warnings.warn("host_tail=True requires method='cg'; using the "
+                      "unified tail", stacklevel=3)
+    t0 = time.time()
+    prec, slots, nsl = setup_structured(
+        A, coords, prm, dtype=dt, pallas=pallas, idofs=idofs,
+        order=order or "morton", fp_solver=fp_solver,
+        algebraic_below=algebraic_below, host_tail=use_host_tail,
+        keep_idofs=keep_idofs, device=dev)
+    if coupling is not None:
+        Aop = _split_metric_operator(A, coupling, sizes, slots, nsl, dt,
+                                     pallas, dev)
+        # the factored operator's accuracy needs float64 Krylov vectors
+        if krylov_dtype is None:
+            krylov_dtype = torch.float64
+    vec_dt = dt if krylov_dtype is None else _torch_dtype(krylov_dtype)
+    if coupling is None:
+        Aop = _cast_matvec(structured_system(
+            A, slots, nsl, dtype=dt, pallas=pallas, idofs=idofs,
+            device=dev), vec_dt)
+    if isinstance(prec, HostTailHybrid):
+        hybrid, M = prec, None
+    else:
+        hybrid, M = None, as_operator(prec)
+    _sync(dev)
+    return hybrid, Aop, M, slots, nsl, time.time() - t0, vec_dt
 
 
 def _grid_branch(A, grid, params, dt, method, pallas, krylov_dtype, dev):

@@ -20,8 +20,12 @@ reference utils.py:84).
 
 ``MetricSmoother`` composes Schwarz on the interface dofs with multicolor
 GS on the rest — the paper's metric-AMG smoother split.
-``LocalSchwarzSmoother``, ``Rank1SchurSmoother`` and ``DiagRank1Smoother``
-belong to the 3D-1D paths (ROADMAP Queue 1 items 10 and 13).
+
+``LocalSchwarzSmoother`` and ``Rank1SchurSmoother`` are the structured
+3D-1D path's footprint smoothers (``amg.structured.setup_structured``):
+each color's residual comes from that color's block ROWS only (padded row
+extracts ``row_cols``/``row_vals``), never from a whole-level residual.
+``DiagRank1Smoother`` is not ported (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -234,3 +238,217 @@ class MetricSmoother:
         return MetricSmoother(self.schwarz.to(device),
                               None if self.gs is None
                               else self.gs.to(device))
+
+
+class LocalSchwarzSmoother:
+    """Colored multiplicative Schwarz with LOCAL residuals.
+
+    Each color carries batched dense extracts of its block ROWS of A
+    (row_cols/row_vals, padded with the ghost column n), so one color
+    update is
+
+        r_loc  = b[ids] - sum_k row_vals * x[row_cols]      (local rows)
+        x[ids] += inv_blocks @ r_loc                        (batched bmm)
+
+    a few torch ops per color whatever the level operator's matvec costs.
+    Blocks of one color are disjoint (overlap coloring), so the scatter
+    (``index_add_`` through the ghost slot) is conflict-free;
+    symmetric = forward colors then reversed."""
+
+    def __init__(self, dof_ids, inv_blocks, row_cols, row_vals,
+                 symmetric=True):
+        self.dof_ids = tuple(dof_ids)        # per color: (nb, m) int64
+        self.inv_blocks = tuple(inv_blocks)  # per color: (nb, m, m)
+        self.row_cols = tuple(row_cols)      # per color: (nb, m, K) int64
+        self.row_vals = tuple(row_vals)      # per color: (nb, m, K)
+        self.symmetric = symmetric
+
+    def _local_residual(self, xpad, b, c):
+        bpad = _pad(b)
+        ax = torch.sum(self.row_vals[c].to(xpad.dtype)
+                       * xpad[self.row_cols[c]], dim=-1)
+        return bpad[self.dof_ids[c]] - ax
+
+    def _color_update(self, x, b, c):
+        xpad = _pad(x)
+        r = self._local_residual(xpad, b, c)
+        delta = torch.bmm(self.inv_blocks[c].to(r.dtype),
+                          r.unsqueeze(-1)).squeeze(-1)
+        xpad.index_add_(0, self.dof_ids[c].reshape(-1),
+                        delta.reshape(-1).to(x.dtype))
+        return xpad[:-1]
+
+    def smooth(self, A, x, b, iters=1, reverse=False):
+        del A, reverse
+        ncol = len(self.dof_ids)
+        for _ in range(iters):
+            for c in range(ncol):
+                x = self._color_update(x, b, c)
+            if self.symmetric:
+                for c in reversed(range(ncol)):
+                    x = self._color_update(x, b, c)
+        return x
+
+
+def _block_rows(A_host: HostCSR, bids, n, m, K):
+    """Padded row extracts of the blocks' rows: (ids, row_cols, row_vals)
+    with ids (nb, m) and the rows (nb, m, K), padded with the ghost n."""
+    indptr, indices, data = A_host.indptr, A_host.indices, A_host.data
+    nb = len(bids)
+    ids = np.full((nb, m), n, dtype=np.int64)
+    rcols = np.full((nb, m, K), n, dtype=np.int64)
+    rvals = np.zeros((nb, m, K))
+    for k, blk in enumerate(bids):
+        ids[k, :len(blk)] = blk
+        for t, i in enumerate(blk):
+            lo, hi = indptr[i], indptr[i + 1]
+            rcols[k, t, :hi - lo] = indices[lo:hi]
+            rvals[k, t, :hi - lo] = data[lo:hi]
+    return ids, rcols, rvals
+
+
+def _row_width(A_host: HostCSR, blocks):
+    indptr = A_host.indptr
+    return int(max((indptr[i + 1] - indptr[i] for blk in blocks
+                    for i in blk), default=1))
+
+
+def build_local_schwarz(A_host: HostCSR, seeds, maxlvl=1, mmsize=200,
+                        symmetric=True, dtype=torch.float32,
+                        cluster=False, device=None):
+    """LocalSchwarzSmoother from the host matrix: blocks = maxlvl-balls
+    around the seeds, exact dense inverses (float64 on the host, stored in
+    dtype), per-color padded row data.
+
+    cluster=True merges runs of overlapping balls into shared blocks
+    (schwarz_setup.merge_overlapping_blocks): at curve resolutions finer
+    than the bulk mesh, per-seed footprints coincide."""
+    dev = resolve_device(device)
+    n = A_host.shape[0]
+    blocks = _bfs_blocks(A_host, np.asarray(seeds, dtype=np.int64),
+                         maxlvl, mmsize)
+    if cluster:
+        from .schwarz_setup import merge_overlapping_blocks
+        blocks = merge_overlapping_blocks(blocks, mmsize)
+    colors = _color_blocks(blocks, n)
+    ncol = int(colors.max()) + 1 if len(blocks) else 0
+    m = max((len(b) for b in blocks), default=1)
+    K = _row_width(A_host, blocks)
+    ids_c, inv_c, rc_c, rv_c = [], [], [], []
+    for c in range(ncol):
+        bids = [blocks[i] for i in np.flatnonzero(colors == c)]
+        ids, rcols, rvals = _block_rows(A_host, bids, n, m, K)
+        inv = np.zeros((len(bids), m, m))
+        for k, blk in enumerate(bids):
+            inv[k, :len(blk), :len(blk)] = np.linalg.inv(
+                A_host.extract_submatrix(blk, blk))
+        ids_c.append(torch.as_tensor(ids).to(dev))
+        inv_c.append(torch.as_tensor(inv, dtype=dtype).to(dev))
+        rc_c.append(torch.as_tensor(rcols).to(dev))
+        rv_c.append(torch.as_tensor(rvals, dtype=dtype).to(dev))
+    return LocalSchwarzSmoother(ids_c, inv_c, rc_c, rv_c, symmetric)
+
+
+class Rank1SchurSmoother:
+    """Footprint smoother with O(|footprint|) storage per block.
+
+    Each block (seed curve dof s + footprint f) is solved with the
+    structured approximation
+
+        B = [[a, w^T], [w, E]],   E = D_l1 + w w^T / a
+
+    (a = A[s,s], w = A[s,f], D_l1 the l1 row sums), whose inverse applies
+    in O(m) by Sherman-Morrison (t = w^T D^{-1} w, denom = a + t):
+
+        alpha   = (denom r_s - a w^T D^{-1} r_f) / a^2
+        delta_f = D^{-1} v - D^{-1} w (w^T D^{-1} v) / denom,
+        v = r - w alpha,   delta_s = alpha
+
+    with the same colored-multiplicative machinery (local residuals from
+    padded row data) as LocalSchwarzSmoother; dof_ids[:, 0] is the seed.
+    The JAX package's docstring records its measured limits: gamma-robust
+    to ~1e4, not at gamma >= 1e8."""
+
+    def __init__(self, dof_ids, dinv, w, aseed, row_cols, row_vals,
+                 symmetric=True):
+        self.dof_ids = tuple(dof_ids)        # per color: (nb, m)
+        self.dinv = tuple(dinv)              # per color: (nb, m); [.,0]=0
+        self.w = tuple(w)                    # per color: (nb, m); [.,0]=0
+        self.aseed = tuple(aseed)            # per color: (nb,)
+        self.row_cols = tuple(row_cols)      # per color: (nb, m, K)
+        self.row_vals = tuple(row_vals)
+        self.symmetric = symmetric
+
+    _local_residual = LocalSchwarzSmoother._local_residual
+
+    def _color_update(self, x, b, c):
+        xpad = _pad(x)
+        r = self._local_residual(xpad, b, c)
+        dinv, w, a = (t.to(r.dtype) for t in (self.dinv[c], self.w[c],
+                                               self.aseed[c]))
+        t = torch.sum(w * dinv * w, dim=1)
+        denom = a + t
+        wdr = torch.sum(w * dinv * r, dim=1)
+        alpha = (denom * r[:, 0] - a * wdr) / (a * a)
+        v = r - w * alpha[:, None]
+        wdv = wdr - t * alpha             # = sum(w*dinv*v)
+        delta = dinv * v - (dinv * w) * (wdv / denom)[:, None]
+        delta[:, 0] = alpha
+        xpad.index_add_(0, self.dof_ids[c].reshape(-1),
+                        delta.reshape(-1).to(x.dtype))
+        return xpad[:-1]
+
+    smooth = LocalSchwarzSmoother.smooth
+
+
+def build_rank1_schur(A_host: HostCSR, seeds, maxlvl=1, mmsize=200,
+                      symmetric=True, dtype=torch.float32, device=None):
+    """Rank1SchurSmoother from the host matrix (blocks = maxlvl-balls
+    around the seeds, seed first, per-color padded row data)."""
+    dev = resolve_device(device)
+    n = A_host.shape[0]
+    seeds = np.asarray(seeds, dtype=np.int64)
+    blocks = _bfs_blocks(A_host, seeds, maxlvl, mmsize)
+    blocks = [np.concatenate([[s], blk[blk != s]])
+              for s, blk in zip(seeds, blocks)]
+    colors = _color_blocks(blocks, n)
+    ncol = int(colors.max()) + 1 if len(blocks) else 0
+    m = max((len(b) for b in blocks), default=1)
+    indptr, indices, data = A_host.indptr, A_host.indices, A_host.data
+    K = _row_width(A_host, blocks)
+    diag = A_host.diagonal()
+    # l1 row sums: D_l1 >= A in the SPD sense, so the footprint part of
+    # the approximate block solve cannot overshoot
+    l1 = np.zeros(n)
+    np.add.at(l1, np.repeat(np.arange(n), np.diff(indptr)),
+              np.abs(data))
+    ids_c, di_c, w_c, sh_c, rc_c, rv_c = [], [], [], [], [], []
+    for c in range(ncol):
+        bids = [blocks[i] for i in np.flatnonzero(colors == c)]
+        nb = len(bids)
+        ids, rcols, rvals = _block_rows(A_host, bids, n, m, K)
+        dinv = np.zeros((nb, m))
+        w = np.zeros((nb, m))
+        aseed = np.ones(nb)
+        for k, blk in enumerate(bids):
+            sz = len(blk)
+            s = blk[0]
+            dj = l1[blk[1:]]
+            dinv[k, 1:sz] = np.where(dj != 0, 1.0 / np.where(
+                dj == 0, 1.0, dj), 0.0)
+            # the seed row restricted to the footprint (w[0] stays 0)
+            lo, hi = indptr[s], indptr[s + 1]
+            pos = {int(d): t for t, d in enumerate(blk)}
+            for cc, vv in zip(indices[lo:hi], data[lo:hi]):
+                t = pos.get(int(cc))
+                if t is not None and t > 0:
+                    w[k, t] = vv
+            aseed[k] = diag[s] if diag[s] != 0 else 1.0
+        ids_c.append(torch.as_tensor(ids).to(dev))
+        di_c.append(torch.as_tensor(dinv, dtype=dtype).to(dev))
+        w_c.append(torch.as_tensor(w, dtype=dtype).to(dev))
+        sh_c.append(torch.as_tensor(aseed, dtype=dtype).to(dev))
+        rc_c.append(torch.as_tensor(rcols).to(dev))
+        rv_c.append(torch.as_tensor(rvals, dtype=dtype).to(dev))
+    return Rank1SchurSmoother(ids_c, di_c, w_c, sh_c, rc_c, rv_c,
+                              symmetric)

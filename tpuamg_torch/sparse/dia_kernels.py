@@ -6,7 +6,12 @@ takes PDIA's place: its ``matvec`` computes ``y = A x`` and its
 planes held as one (nd, n) tensor, diagonal-major, in float32 or
 bfloat16, and the sum taken in float32.  On a CUDA tensor the wrappers
 launch K1; on a CPU tensor they run the plain version below (a sum of
-shifted slices); on anything else they raise.
+shifted slices); on anything else they raise.  Up to ``kernels.
+MAX_DIAGS`` (64) bands K1's entry takes the offsets by value; above that
+(the structured 3D-1D path's operators, hundreds to thousands of bands)
+its wide entry reads them from an int32 device array that ``KernelDIA``
+uploads once (``offsets_dev``) and stages them in shared memory: a rule
+on the band count, not a fallback.
 
 ``FusedChebSmoother`` takes the place of the JAX package's smoother of
 the same name: a whole Chebyshev sweep (``iters`` x degree steps of
@@ -65,20 +70,36 @@ def dia_spmv_plain(offsets, planes, x, b=None, out=None, x_pad=0):
     return out.copy_(y)
 
 
-def dia_spmv(offsets, planes, x, b=None, out=None, x_pad=None):
+def offsets_tensor(offsets, device):
+    """The offsets as the int32 device array K1's wide entry reads."""
+    return torch.as_tensor(np.asarray(offsets, dtype=np.int32)).to(device)
+
+
+def dia_spmv(offsets, planes, x, b=None, out=None, x_pad=None,
+             offsets_dev=None):
     """y = A x (b is None) or y = b - A x, A in DIA planes (nd, n).
 
     x_pad: None reads x over [0, n); an int reads it from a buffer of
     n + 2 x_pad entries whose row i sits at i + x_pad (see
     dia_spmv_plain).
 
-    CPU tensors: the plain version.  CUDA tensors: kernel K1 (its padded-x
-    entry when x_pad is an int), with x, b and out float32 and the planes
-    float32 or bfloat16."""
+    CPU tensors: the plain version.  CUDA tensors: kernel K1, with x, b
+    and out float32 and the planes float32 or bfloat16.  Which entry is a
+    rule on the band count: up to ``kernels.MAX_DIAGS`` bands the offsets
+    go by value (its padded-x entry when x_pad is an int); above it the
+    wide entry reads them from ``offsets_dev``, an int32 device array of
+    the offsets (``offsets_tensor``; uploaded here when not given, so
+    callers that repeat a call keep one, as KernelDIA does).  The wide
+    entry has no padded-x form."""
     if x.device.type == "cpu":
         return dia_spmv_plain(offsets, planes, x, b, out, x_pad or 0)
-    n = x.shape[0] - 2 * (x_pad or 0)
     nd = len(offsets)
+    if nd > kernels.MAX_DIAGS:
+        if x_pad is not None:
+            raise ValueError(f"K1's padded-x entry takes at most "
+                             f"{kernels.MAX_DIAGS} diagonals, not {nd}")
+        return _dia_spmv_wide(offsets, planes, x, b, out, offsets_dev)
+    n = x.shape[0] - 2 * (x_pad or 0)
     kernels.require(x, "x", dtype=torch.float32)
     kernels.require(planes, "planes", numel=nd * n, device=x.device)
     if b is not None:
@@ -99,6 +120,36 @@ def dia_spmv(offsets, planes, x, b=None, out=None, x_pad=None):
     else:
         name += "_pad"
         rc = kernels.lib().tpuamg_dia_sweep_pad(*head, int(x_pad), *tail)
+    kernels.check(rc, name)
+    kernels.LAUNCHES[name] += 1
+    return out
+
+
+def _dia_spmv_wide(offsets, planes, x, b, out, offsets_dev):
+    """K1's wide entry (csrc/dia.cu, tpuamg_dia_sweep_wide): any band
+    count, offsets from a device array."""
+    n = x.shape[0]
+    nd = len(offsets)
+    kernels.require(x, "x", dtype=torch.float32)
+    kernels.require(planes, "planes", numel=nd * n, device=x.device)
+    if offsets_dev is None:
+        offsets_dev = offsets_tensor(offsets, x.device)
+    kernels.require(offsets_dev, "offsets", dtype=torch.int32, numel=nd,
+                    device=x.device)
+    if b is not None:
+        kernels.require(b, "b", dtype=torch.float32, numel=n,
+                        device=x.device)
+    if out is None:
+        out = torch.empty(n, dtype=torch.float32, device=x.device)
+    kernels.require(out, "out", dtype=torch.float32, numel=n,
+                    device=x.device)
+    if kernels.overlaps(out, x):
+        raise ValueError("out must not overlap x")
+    name = "dia_spmv_wide" if b is None else "dia_residual_wide"
+    rc = kernels.lib().tpuamg_dia_sweep_wide(
+        planes.data_ptr(), kernels.storage_flag(planes), x.data_ptr(),
+        None if b is None else b.data_ptr(), out.data_ptr(), n, nd,
+        offsets_dev.data_ptr(), kernels.stream_ptr())
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
     return out
@@ -136,6 +187,9 @@ class KernelDIA:
         self.planes = planes
         self.shape = tuple(shape)
         self.nnz = int(nnz)
+        # the offsets on the planes' device, for K1's wide entry (more
+        # than kernels.MAX_DIAGS bands): uploaded once, at the first call
+        self._offsets_dev = None
 
     @property
     def dtype(self):
@@ -162,12 +216,24 @@ class KernelDIA:
     def to_host(self) -> HostCSR:
         return self.to_dia().to_host()
 
+    def offsets_dev(self):
+        """The offsets as an int32 tensor on the planes' device (None
+        while the operator has at most kernels.MAX_DIAGS bands or lives
+        on the CPU: those calls take the offsets by value)."""
+        if (self._offsets_dev is None and self.planes.device.type == "cuda"
+                and len(self.offsets) > kernels.MAX_DIAGS):
+            self._offsets_dev = offsets_tensor(self.offsets,
+                                               self.planes.device)
+        return self._offsets_dev
+
     def matvec(self, x):
-        return dia_spmv(self.offsets, self.planes, x)
+        return dia_spmv(self.offsets, self.planes, x,
+                        offsets_dev=self.offsets_dev())
 
     def residual(self, x, b):
         """b - A @ x in one K1 launch."""
-        return dia_spmv(self.offsets, self.planes, x, b)
+        return dia_spmv(self.offsets, self.planes, x, b,
+                        offsets_dev=self.offsets_dev())
 
     def diagonal(self):
         if 0 in self.offsets:

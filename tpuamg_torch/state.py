@@ -6,7 +6,9 @@ The functions here take the JAX package's operator objects (a ``DIA`` or
 objects from their numpy arrays and their plain fields: offsets, level
 dims, K, rows, theta, Chebyshev coefficients and intervals, degree,
 pre/post, nc, rows_c, ELL planes, aggregate maps, color and Schwarz block
-data, cycle settings.
+data, cycle settings, and the structured hierarchy's window levels
+(DIA planes or StructuredOp blocks and spill, masks, block inverses,
+Chebyshev intervals, footprint Schwarz data) and host tails.
 They never import JAX: they read attributes and call ``numpy.asarray``.
 Tests use them to hold both packages to the same planes and the same
 coarse inverse, whatever each side's float32 LU would compute.
@@ -19,13 +21,17 @@ import torch
 from .amg.grid import ChebyshevDiagSmoother, GridLevel
 from .amg.grid_fused import CycleSpec, FusedPCG, FusedVCycle, LevelSpec
 from .amg.hierarchy import MGLevel, MGPreconditioner
-from .amg.structured import BlockChebyshevSmoother, DiaChebyshevSmoother
+from .amg.structured import (BlockChebyshevSmoother, DiaChebyshevSmoother,
+                             FootprintMetricSmoother, HostTailHybrid,
+                             StructuredLevel, StructuredOp)
 from .kernels import LANES, resolve_device
 from .sparse.dia import DIA
 from .sparse.dia_kernels import FusedChebSmoother, KernelDIA
 from .sparse.device import ELL
 from .smoothers import (ChebyshevSmoother, JacobiSmoother, L1JacobiSmoother,
                         MetricSmoother, MulticolorGS, SchwarzSmoother)
+from .smoothers.schwarz import LocalSchwarzSmoother, Rank1SchurSmoother
+from .sparse.host import HostCSR
 
 
 def to_tensor(a, device=None):
@@ -177,24 +183,109 @@ def _amg_smoother(sm, device):
     raise TypeError(f"no port of the smoother {name}")
 
 
+def _mg_level_from_jax(L, device):
+    agg = None if L.agg is None else to_tensor(
+        np.asarray(L.agg).astype(np.int64), device)
+    return MGLevel(
+        ell_from_jax(L.A, device), _amg_smoother(L.smoother, device),
+        agg=agg, P=None if L.P is None else ell_from_jax(L.P, device),
+        R=None if L.R is None else ell_from_jax(L.R, device), nc=int(L.nc))
+
+
+def _like(prec, levels, coarse_inv):
+    return MGPreconditioner(
+        levels, coarse_inv, cycle=prec.cycle, maxit=prec.maxit,
+        presmooth=prec.presmooth, postsmooth=prec.postsmooth,
+        amli_degree=prec.amli_degree, max_w_work=prec.max_w_work,
+        coarse_scaling=prec.coarse_scaling)
+
+
 def amg_hierarchy_from_jax(prec, device=None) -> MGPreconditioner:
     """The MGPreconditioner of the JAX package's algebraic
     ``amg.hierarchy.setup_amg`` -> the port's: the same ELL levels, UA
     aggregate maps or SA P/R, smoother data (GS color rows/ids/inverse
     diagonals, Schwarz dof ids and inverse blocks, Jacobi and Chebyshev
     data), coarse inverse and cycle settings."""
-    levels = []
-    for L in prec.levels:
-        agg = None if L.agg is None else to_tensor(
-            np.asarray(L.agg).astype(np.int64), device)
-        levels.append(MGLevel(
-            ell_from_jax(L.A, device), _amg_smoother(L.smoother, device),
-            agg=agg,
-            P=None if L.P is None else ell_from_jax(L.P, device),
-            R=None if L.R is None else ell_from_jax(L.R, device),
-            nc=int(L.nc)))
-    return MGPreconditioner(
-        levels, to_tensor(prec.coarse_inv, device), cycle=prec.cycle,
-        maxit=prec.maxit, presmooth=prec.presmooth,
-        postsmooth=prec.postsmooth, amli_degree=prec.amli_degree,
-        max_w_work=prec.max_w_work, coarse_scaling=prec.coarse_scaling)
+    return _like(prec, [_mg_level_from_jax(L, device) for L in prec.levels],
+                 to_tensor(prec.coarse_inv, device))
+
+
+def _structured_operator(A, device):
+    """A JAX StructuredOp (its DIA part a DIA or PDIA) -> StructuredOp;
+    a DIA or PDIA -> DIA or KernelDIA."""
+    if not hasattr(A, "ids"):
+        return _grid_operator(A, device)
+    spill = None
+    if A.spill is not None:
+        r, c, v = A.spill
+        spill = (to_tensor(np.asarray(r).astype(np.int64), device),
+                 to_tensor(np.asarray(c).astype(np.int64), device),
+                 to_tensor(v, device))
+    return StructuredOp(_grid_operator(A.dia, device),
+                        to_tensor(np.asarray(A.ids).astype(np.int64),
+                                  device),
+                        to_tensor(A.mats, device), nnz=A.nnz, spill=spill)
+
+
+def _ids(a, device):
+    return [to_tensor(np.asarray(t).astype(np.int64), device) for t in a]
+
+
+def _vals(a, device):
+    return [to_tensor(t, device) for t in a]
+
+
+def _structured_smoother(sm, device):
+    name = type(sm).__name__
+    if name == "FootprintMetricSmoother":
+        return FootprintMetricSmoother(
+            _structured_smoother(sm.schwarz, device),
+            _structured_smoother(sm.cheb, device))
+    if name == "LocalSchwarzSmoother":
+        return LocalSchwarzSmoother(
+            _ids(sm.dof_ids, device), _vals(sm.inv_blocks, device),
+            _ids(sm.row_cols, device), _vals(sm.row_vals, device),
+            symmetric=sm.symmetric)
+    if name == "Rank1SchurSmoother":
+        return Rank1SchurSmoother(
+            _ids(sm.dof_ids, device), _vals(sm.dinv, device),
+            _vals(sm.w, device), _vals(sm.aseed, device),
+            _ids(sm.row_cols, device), _vals(sm.row_vals, device),
+            symmetric=sm.symmetric)
+    return _grid_smoother(sm, device)
+
+
+def _level_from_jax(L, device):
+    if not hasattr(L, "n_groups"):          # an algebraic tail level
+        return _mg_level_from_jax(L, device)
+    return StructuredLevel(_structured_operator(L.A, device),
+                           _structured_smoother(L.smoother, device),
+                           to_tensor(L.mask, device), int(L.s),
+                           int(L.n_groups), int(L.nc))
+
+
+def structured_hierarchy_from_jax(prec, device=None):
+    """The JAX package's ``amg.structured.setup_structured`` result -> the
+    port's, on the same data.
+
+    An MGPreconditioner of StructuredLevels (and, with a unified
+    algebraic tail, the tail's levels after them) becomes the port's:
+    level operators as DIA / KernelDIA planes or StructuredOp ids, mats
+    and spill; smoothers with their block inverses, masks, lmax/lmin and
+    the footprint Schwarz data (LocalSchwarzSmoother,
+    Rank1SchurSmoother); transfers' s, n_groups and nc; the coarse
+    inverse.  A HostTailHybrid becomes the port's HostTailHybrid: its
+    fine part so, its tail through amg_hierarchy_from_jax on the CPU,
+    and its boundary operator and coarse_scaling as they are."""
+    if hasattr(prec, "tail_apply"):
+        Ab = prec._Ab
+        return HostTailHybrid(
+            structured_hierarchy_from_jax(prec.fine, device),
+            amg_hierarchy_from_jax(prec.tail, "cpu"),
+            HostCSR(np.asarray(Ab.indptr), np.asarray(Ab.indices),
+                    np.asarray(Ab.data), Ab.shape),
+            coarse_scaling=prec.coarse_scaling)
+    cinv = None if prec.coarse_inv is None else to_tensor(prec.coarse_inv,
+                                                          device)
+    return _like(prec, [_level_from_jax(L, device) for L in prec.levels],
+                 cinv)
