@@ -142,6 +142,19 @@ array), adds:
      profiler device time warm and after a 128 MB write, beside its bytes
      bound and CSR @ on the same operator; K3 on a structured window
      hierarchy (bidomain 2D n=127) against plain.
+The tenth slice redesigns K1's wide entry as a walk over a tile-compacted
+layout of the operator's nonzeros (sparse/dia_tiles.py, csrc/dia_tiles.cu;
+the planes design of the ninth slice stays as dia_spmv_wide_planes, for
+comparison only):
+  1. the wide kernel's ptxas lines;
+ 21. the solves launch only the tile walk (dia_spmv_wide), each
+     operator's layout built once, never the planes design; on AD (matvec
+     and residual) and on each wide Morton level of the n=127 hierarchy,
+     the walk against plain and bit for bit against the planes design,
+     by events and profiler device time, warm and cold, beside the
+     planes design and CSR @, with the bound counted the guide's way
+     (nonzero values, x, y, b once; the padded planes as a second
+     figure).
 Then a JSON line {"kernels": [...]}, the nvidia-smi line, and, last, the
 result line {"ok": true, "device": {...}}.  Any failed check raises, and
 the script exits nonzero; a watchdog ends it, with a traceback and a
@@ -364,6 +377,8 @@ def run(n=N, device="cuda", coarse=COARSE, n2=N2, nrefs=4,
             ptxas_of(info["ptxas"], "cycle_persistent")))
         say("[1 build] the one-launch K3: " + " | ".join(
             ptxas_of(info["ptxas"], "cheb_persistent")))
+        say("[1 build] K1's wide entry (tile walk): " + " | ".join(
+            ptxas_of(info["ptxas"], "dia_tiles")))
     else:
         say("[1 build] skipped (rehearsal on the CPU)")
 
@@ -1976,15 +1991,72 @@ def phase21_solve(dev, mesh_n, gamma):
         check(counts.get(name, 0) >= its + len(rep.pass_iters),
               f"structured gamma {gamma}: {counts.get(name, 0)} {name} "
               f"launches for {its} iterations")
+        # the wide launches are the tile walk's, each operator's layout
+        # built once; the planes design is not launched
+        check(not counts.get("dia_spmv_wide_planes")
+              and not counts.get("dia_residual_wide_planes")
+              and (name != "dia_spmv_wide"
+                   or 0 < counts.get("dia_tiles_build", 0) <= 4),
+              f"structured gamma {gamma}: wide launches {counts}")
     return AD, counts
 
 
+def wide_bound(tiles, n, rhs):
+    """K1's wide entry's bound (ms, by): the nonzero values, x and y (and
+    b) once; and the padded planes' bytes with the same vectors."""
+    item = tiles.vals.element_size()
+    vec = 4 * n * (2 + (rhs is not None))
+    nbytes = tiles.nnz * item + vec
+    flops = 2 * tiles.nnz + (n if rhs is not None else 0)
+    bms, by = bound_ms(nbytes, flops)
+    return bms, by, nbytes, tiles.planes.numel() * item + vec
+
+
+def wide_times(dev, op, x, rhs, reps):
+    """K1's wide entry on a KernelDIA op against the planes design and
+    CSR @ (addmv for a residual) on the same inputs: events in turns
+    (planes, tiles, tiles, planes), then profiler device time warm and
+    cold per design.  Returns {design: (events ms list, {False: warm us,
+    True: cold us})}; on the CPU the plain walk's events only."""
+    from tpuamg_torch.sparse.dia_kernels import (dia_spmv_wide_planes,
+                                                 offsets_tensor)
+    call = (lambda: op.matvec(x)) if rhs is None else \
+        (lambda: op.residual(x, rhs))
+    if dev.type != "cuda":
+        return {"tiles": ([timed_ms(call, reps, dev)], {})}
+    offs_dev = offsets_tensor(op.offsets, dev)
+    M = csr_of(op.to_host(), dev)
+    calls = {
+        "tiles": call,
+        "planes": lambda: dia_spmv_wide_planes(op.offsets, op.planes, x,
+                                               rhs, offsets_dev=offs_dev),
+        "csr": (lambda: M @ x) if rhs is None else
+        (lambda: torch.addmv(rhs, M, x, beta=1.0, alpha=-1.0))}
+    kernel = {"tiles": "dia_tiles_kernel", "planes": "dia_wide_kernel",
+              "csr": lambda k: "FillFunctor" not in k}
+    ev = {k: [] for k in calls}
+    for k in ("planes", "tiles", "tiles", "planes", "csr"):
+        ev[k].append(timed_ms(calls[k], reps, dev))
+    return {k: (ev[k], warm_cold_us(calls[k], kernel[k], dev))
+            for k in calls}
+
+
+def wide_text(t):
+    return " | ".join(
+        f"{k} {'/'.join(f'{v:.5f}' for v in ev)} ms"
+        + (f", device {fmt_us(wc[False])} warm, {fmt_us(wc[True])} cold"
+           if wc else "") for k, (ev, wc) in t.items())
+
+
 def phase21_wide(dev, kern, AD, counts):
-    """K1's wide entry on AD at its real band count: against plain, by
-    events and profiler device time (warm and after a 128 MB write),
-    beside its bytes bound and the CSR library call."""
+    """K1's wide entry on AD at its real band count: against plain and
+    (on the card) bit for bit against the planes design, by events and
+    profiler device time (warm and after a 128 MB write) beside the
+    planes design and CSR @, and its bytes bound (nonzero values, x, y,
+    b once; the padded planes as a second figure)."""
     from tpuamg_torch import kernels
-    from tpuamg_torch.sparse.dia_kernels import dia_spmv_plain
+    from tpuamg_torch.sparse.dia_kernels import (dia_spmv_plain,
+                                                 dia_spmv_wide_planes)
     on_card = dev.type == "cuda"
     n = AD.shape[0]
     rng = np.random.default_rng(21)
@@ -1992,6 +2064,16 @@ def phase21_wide(dev, kern, AD, counts):
     bb = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32
                          ).to(dev)
     planes, offs = AD.planes, AD.offsets
+    tiles = AD.tiles()
+    per_tile = (tiles.band_ptr[1:] - tiles.band_ptr[:-1]).float()
+    say(f"[21 K1 wide layout] AD {len(offs)} bands, {n} rows, "
+        f"{planes.numel()} plane entries, {tiles.nnz} nonzeros (fill "
+        f"{tiles.nnz / planes.numel():.4f}); {tiles.rows}-row tiles, bands "
+        f"per tile mean {float(per_tile.mean()):.1f} max {tiles.max_bands},"
+        f" {tiles.vals.numel()} entries with padding, "
+        f"uint{8 * tiles.idx_bytes} indices, {tiles.stream_bytes()} B a "
+        f"walk; layout builds in the solves "
+        f"{counts.get('dia_tiles_build', 0)}")
     for label, rhs in (("dia_spmv_wide", None), ("dia_residual_wide", bb)):
         before = kernels.LAUNCHES[label]
         y = (AD.matvec(x) if rhs is None else AD.residual(x, rhs)).clone()
@@ -2003,35 +2085,27 @@ def phase21_wide(dev, kern, AD, counts):
         rel = abs_err / float(y_p.abs().max())
         check(np.isfinite(rel) and rel <= 1e-5,
               f"{label} vs plain: rel err {rel:.3e} > 1e-5")
+        if on_card:
+            check(torch.equal(y, dia_spmv_wide_planes(offs, planes, x, rhs)),
+                  f"{label}: the tile walk and the planes design differ")
         reps = 200 if on_card else 2
-        call = (lambda: AD.matvec(x)) if rhs is None else \
-            (lambda: AD.residual(x, rhs))
-        ms = timed_ms(call, reps, dev)
+        t = wide_times(dev, AD, x, rhs, reps)
+        ms = float(np.mean(t["tiles"][0]))
         plain_ms = timed_ms(lambda: dia_spmv_plain(offs, planes, x, rhs),
                             max(reps // 20, 2), dev)
-        nbytes = planes.numel() * planes.element_size() + 4 * n * (
-            2 + (rhs is not None))
-        flops = 2 * planes.numel() + (n if rhs is not None else 0)
-        bms, by = bound_ms(nbytes, flops)
-
-        def make_library_call(rhs=rhs):
-            M = csr_of(AD.to_host(), dev)
-            if rhs is None:
-                return lambda: M @ x
-            return lambda: torch.addmv(rhs, M, x, beta=1.0, alpha=-1.0)
-        lib = library_ms(make_library_call, reps, dev)
-        wc = warm_cold_us(call, "dia_wide_kernel", dev) if on_card else \
-            {False: "not measured", True: "not measured"}
-        say(f"[21 K1 {label}] AD planes {tuple(planes.shape)} "
-            f"{planes.dtype}, {len(offs)} bands, offsets "
-            f"{min(offs)}..{max(offs)} | max_abs_err {abs_err:.3e} rel "
-            f"{rel:.3e} | kernel {ms:.5f} ms (events), device time "
-            f"warm {fmt_us(wc[False])}, cold (after a 128 MB write) "
-            f"{fmt_us(wc[True])} | plain {plain_ms:.5f} ms csr-library "
-            f"{lib} ms | bound {bms:.5f} ms ({by}, {nbytes} B, {flops} "
-            f"flop) -> {bms / ms:.3f} of bound by events")
+        bms, by, nbytes, padded = wide_bound(tiles, n, rhs)
+        lib = float(np.mean(t["csr"][0])) if "csr" in t else None
+        warm = t["tiles"][1].get(False)
+        share = "" if not isinstance(warm, float) else (
+            f" -> {bms * 1e3 / warm:.3f} of bound by warm device time")
+        say(f"[21 K1 {label}] AD | max_abs_err {abs_err:.3e} rel {rel:.3e}"
+            f"{', = planes design bit for bit' if on_card else ''} | "
+            f"{wide_text(t)} | plain {plain_ms:.5f} ms | bound "
+            f"{bms * 1e3:.3f} us ({by}, {nbytes} B: nonzero values, x, y"
+            f"{', b' if rhs is not None else ''}; padded planes {padded} B "
+            f"= {padded / HBM_BYTES_PER_S * 1e6:.3f} us){share}")
         kern.append(dict(name=label, route="cuda",
-                         source="tpuamg_torch/csrc/dia.cu",
+                         source="tpuamg_torch/csrc/dia_tiles.cu",
                          replaces=("tpuamg/sparse/dia_pallas.py:198"
                                    if rhs is None else
                                    "tpuamg/sparse/dia_pallas.py:210"),
@@ -2075,6 +2149,7 @@ def phase21_k3(dev, n=127):
               f"structured level of {nA} bands took {type(sm).__name__}")
         if not k3:
             rows.append((L.A.shape[0], nA, "K1 (DiaChebyshevSmoother)"))
+            wide_level(dev, getattr(L.A, "dia", L.A), rng)
             continue
         m = L.A.shape[0]
         x = torch.as_tensor(rng.standard_normal(m), dtype=torch.float32,
@@ -2110,6 +2185,28 @@ def phase21_k3(dev, n=127):
         f"vs plain, smooth_residual by events) {rows}")
     check(any(r[2].startswith("K3") for r in rows),
           "no structured level took K3")
+
+
+def wide_level(dev, A, rng):
+    """K1's wide entry on a window level's operator (a KernelDIA of more
+    than MAX_DIAGS bands): matvec against plain, timed beside the planes
+    design and CSR @ (wide_times), with its bound."""
+    from tpuamg_torch.sparse.dia_kernels import dia_spmv_plain
+    m = A.shape[0]
+    x = torch.as_tensor(rng.standard_normal(m), dtype=torch.float32,
+                        device=dev)
+    y = A.matvec(x)
+    y_p = dia_spmv_plain(A.offsets, A.planes, x)
+    rel = float((y - y_p).abs().max() / y_p.abs().max())
+    check(np.isfinite(rel) and rel <= 1e-5,
+          f"wide level of {m} rows: {rel:.3e} vs plain")
+    tiles = A.tiles()
+    bms, _, nbytes, padded = wide_bound(tiles, m, None)
+    t = wide_times(dev, A, x, None, 200 if dev.type == "cuda" else 2)
+    say(f"[21 K1 wide level] {m} rows, {len(A.offsets)} bands, "
+        f"{tiles.nnz} nonzeros, max {tiles.max_bands} bands a tile | rel "
+        f"{rel:.3e} vs plain | {wide_text(t)} | bound {bms * 1e3:.3f} us "
+        f"({nbytes} B; padded planes {padded} B)")
 
 
 def route_pair(fp, bk, vc, A, b, slots, n, dev, its_a, plain, ms_a=None):
@@ -2374,22 +2471,29 @@ def fmt_us(v):
 
 
 def warm_cold_us(launch, kernel, dev, reps=10):
-    """Device time per launch of `kernel` (us, profiler), {False: warm L2
-    (the same inputs launch after launch), True: cold (each launch after
-    a 128 MB write, which evicts the 50 MB L2)}; "not measured" where the
-    profiler saw no device time."""
+    """Device time per launch (us, profiler) of the kernels whose full
+    name contains `kernel` (or that `kernel`, a predicate on the name,
+    accepts), {False: warm L2 (the same inputs launch after launch),
+    True: cold (each launch after a 128 MB write, which evicts the 50 MB
+    L2)}; "not measured" where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    keep = kernel if callable(kernel) else (lambda k: kernel in k)
     flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
     out = {}
     for cold in (False, True):
-        def go(cold=cold):
+        launch()
+        sync(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 if cold:
                     flush.fill_(1.0)
                 launch()
-        prof = profile_busy(go, dev)
-        us = None if prof is None else sum(
-            u for k, _, u in prof[0] if kernel in k) / reps
-        out[cold] = "not measured" if not us else us
+            sync(dev)
+        us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA and keep(ev.name))
+        out[cold] = us / reps if us > 0 else "not measured"
     return out
 
 

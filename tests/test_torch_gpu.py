@@ -1142,13 +1142,15 @@ def _wide_offsets(nd, n, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("residual", [False, True])
 def test_dia_wide_entry_matches_plain(nd, n, dtype, residual):
-    """More than kernels.MAX_DIAGS bands: K1's wide entry (offsets from a
-    device array, staged in shared memory 2048 at a time: 3000 takes two
-    tiles) against dia_spmv_plain, offsets beyond +-n included, at 1e-5
-    relative (float32 sums in another order); one wide launch, none of
-    the <=64 entry."""
+    """More than kernels.MAX_DIAGS bands: K1's wide entry (the tile walk,
+    csrc/dia_tiles.cu) against dia_spmv_plain, offsets beyond +-n
+    included, at 1e-5 relative (float32 fma against separate products and
+    sums), and bit for bit against the planes design (dia_wide_kernel: the
+    same fmaf chain per row, less the exact zeros); one wide launch per
+    call, the layout built once."""
     from tpuamg_torch import kernels
-    from tpuamg_torch.sparse.dia_kernels import (KernelDIA, dia_spmv_plain)
+    from tpuamg_torch.sparse.dia_kernels import (KernelDIA, dia_spmv_plain,
+                                                 dia_spmv_wide_planes)
     dev = _card()
     offs = _wide_offsets(nd, n, nd + n)
     assert len(offs) == nd and max(abs(o) for o in offs) > n
@@ -1165,15 +1167,77 @@ def test_dia_wide_entry_matches_plain(nd, n, dtype, residual):
     err = float((y - ref).abs().max() / ref.abs().max())
     assert err < 1e-5, err
     name = "dia_residual_wide" if residual else "dia_spmv_wide"
-    assert dict(kernels.LAUNCHES) == {name: 1}
-    dev_offs = op.offsets_dev()
-    assert dev_offs.dtype == torch.int32 and dev_offs.device.type == "cuda"
+    assert dict(kernels.LAUNCHES) == {name: 1, "dia_tiles_build": 1}
+    tiles = op.tiles()
+    assert tiles.device.type == "cuda"
+    y2 = op.residual(x, b) if residual else op.matvec(x)
+    assert op.tiles() is tiles                 # built once
+    assert dict(kernels.LAUNCHES) == {name: 2, "dia_tiles_build": 1}
+    y_old = dia_spmv_wide_planes(offs, planes, x, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name + "_planes"] == 1
+    assert torch.equal(y, y_old) and torch.equal(y2, y)
+
+
+@pytest.mark.parametrize("nd,idx_dtype", [(256, torch.uint8),
+                                          (257, torch.int16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dia_wide_entry_index_width(nd, idx_dtype, dtype):
+    """Every tile of a dense band of nd offsets around 0 has nd bands: 256
+    take uint8 local indices, 257 uint16 (an int16 tensor); the layout
+    built on the card equals the one built on the CPU, and the kernel
+    equals the planes design bit for bit either way."""
+    from tpuamg_torch.sparse.dia_kernels import (KernelDIA, dia_spmv_plain,
+                                                 dia_spmv_wide_planes)
+    from tpuamg_torch.sparse.dia_tiles import build_tiles
+    dev = _card()
+    n = 4_000
+    offs = tuple(range(-128, nd - 128))
+    planes = _random_planes(n, nd, dtype, 8).to(dev)
+    x = torch.as_tensor(np.random.default_rng(9).standard_normal(n),
+                        dtype=torch.float32).to(dev)
+    op = KernelDIA(offs, planes, (n, n), 0)
+    y = op.matvec(x)
+    tiles = op.tiles()
+    assert tiles.idx.dtype == idx_dtype and tiles.max_bands == nd
+    host = build_tiles(offs, planes.cpu())
+    for k in ("vals", "idx", "ent_ptr", "band_ptr", "tile_off"):
+        assert torch.equal(getattr(tiles, k).cpu(), getattr(host, k)), k
+    assert torch.equal(y, dia_spmv_wide_planes(offs, planes, x))
+    ref = dia_spmv_plain(offs, planes, x)
+    assert float((y - ref).abs().max() / ref.abs().max()) < 1e-5
+
+
+def test_dia_wide_entry_follows_the_planes():
+    """The layout is built from the planes the kernel is handed: a write
+    into KernelDIA.planes builds it again (counted), and the result is
+    the new operator's; a bare dia_spmv call builds one for the call."""
+    from tpuamg_torch import kernels
+    from tpuamg_torch.sparse.dia_kernels import (KernelDIA, dia_spmv,
+                                                 dia_spmv_plain)
+    dev = _card()
+    n, offs = 3_000, _wide_offsets(100, 3_000, 11)
+    planes = _random_planes(n, 100, torch.float32, 12).to(dev)
+    x = torch.as_tensor(np.random.default_rng(13).standard_normal(n),
+                        dtype=torch.float32).to(dev)
+    op = KernelDIA(offs, planes, (n, n), 0)
+    kernels.reset_launches()
     op.matvec(x)
-    assert op.offsets_dev() is dev_offs       # uploaded once
+    planes[:, ::2] = 0.0
+    y = op.matvec(x)
+    assert kernels.LAUNCHES["dia_tiles_build"] == 2
+    ref = dia_spmv_plain(offs, planes, x)
+    assert float((y - ref).abs().max() / ref.abs().max()) < 1e-5
+    kernels.reset_launches()
+    y_bare = dia_spmv(offs, planes, x)
+    assert dict(kernels.LAUNCHES) == {"dia_spmv_wide": 1,
+                                      "dia_tiles_build": 1}
+    assert torch.equal(y_bare, y)
 
 
 def test_dia_64_bands_take_the_narrow_entry():
-    """64 bands: the <=64 entry (offsets by value), no wide launch."""
+    """64 bands: the <=64 entry (offsets by value), no wide launch and no
+    layout."""
     from tpuamg_torch import kernels
     from tpuamg_torch.sparse.dia_kernels import KernelDIA, dia_spmv_plain
     dev = _card()
@@ -1186,16 +1250,20 @@ def test_dia_64_bands_take_the_narrow_entry():
     y = op.matvec(x)
     torch.cuda.synchronize()
     assert dict(kernels.LAUNCHES) == {"dia_spmv": 1}
-    assert op.offsets_dev() is None
+    assert op.tiles() is None
     ref = dia_spmv_plain(offs, planes, x)
     assert float((y - ref).abs().max() / ref.abs().max()) < 1e-5
 
 
 def test_dia_wide_entry_rejects_bad_input():
-    from tpuamg_torch.sparse.dia_kernels import dia_spmv, offsets_tensor
+    from tpuamg_torch.sparse.dia_kernels import (dia_spmv,
+                                                 dia_spmv_wide_planes,
+                                                 offsets_tensor)
+    from tpuamg_torch.sparse.dia_tiles import build_tiles, dia_spmv_tiles
     dev = _card()
     offs = tuple(range(-40, 40))
     planes = torch.zeros((80, 100), device=dev)
+    planes[40] = 1.0
     x = torch.zeros(100, device=dev)
     with pytest.raises(TypeError):
         dia_spmv(offs, planes, x.double())
@@ -1203,9 +1271,16 @@ def test_dia_wide_entry_rejects_bad_input():
         dia_spmv(offs, planes, x, x_pad=2)
     with pytest.raises(ValueError):
         dia_spmv(offs, planes[:, :50], x)
+    tiles = build_tiles(offs, planes)
     with pytest.raises(ValueError):
-        dia_spmv(offs, planes, x, offsets_dev=offsets_tensor(offs[:-1],
-                                                             dev))
+        dia_spmv_tiles(tiles, x[:50])
+    with pytest.raises(ValueError):
+        dia_spmv_tiles(tiles, x, out=x)
+    with pytest.raises(ValueError):
+        dia_spmv_tiles(tiles, x, x[:99])
+    with pytest.raises(ValueError):
+        dia_spmv_wide_planes(offs, planes, x,
+                             offsets_dev=offsets_tensor(offs[:-1], dev))
 
 
 def test_structured_level_k3_matches_plain():
@@ -1293,6 +1368,11 @@ def test_structured_3d1d_on_card_matches_cpu(tmp_path):
                                                 ref.pass_iters))
     assert launches.get("dia_spmv", 0) + launches.get("dia_spmv_wide", 0) \
         > 0, launches
+    # the wide launches are the tile walk's, on layouts built once each
+    assert not launches.get("dia_spmv_wide_planes") and not launches.get(
+        "dia_residual_wide_planes"), launches
+    if launches.get("dia_spmv_wide"):
+        assert 0 < launches["dia_tiles_build"] <= 4, launches
     A, b, _, _ = load_system(d)
     x = read_solution(o)
     assert np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b) <= 1e-6

@@ -14,6 +14,7 @@ import sys
 import tpuamg_torch
 import tpuamg_torch.kernels, tpuamg_torch.state
 import tpuamg_torch.sparse.dia, tpuamg_torch.sparse.dia_kernels
+import tpuamg_torch.sparse.dia_tiles
 import tpuamg_torch.amg.grid_fused, tpuamg_torch.krylov.cg
 import tpuamg_torch.amg.cycle_program
 import tpuamg_torch.problems.bidomain, tpuamg_torch.fem.mms

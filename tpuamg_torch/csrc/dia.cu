@@ -55,24 +55,19 @@ inline int dia_sweep(const void* planes, int planes_bf16, const void* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The wide entry: any band count.  The offsets stay in a device int32
-// array that the caller uploaded once (KernelDIA keeps it with the
-// planes); every block stages them in shared memory, kWideTile at a time
-// (8 KB), and each thread loops over them for its row, in the stored
-// diagonal order, as dia_row does.  The row loop is the same as the <=64
-// entry's; only where the offsets live differs (kernel parameters hold
-// 4 KB at most, and Offsets by value would cost every launch of the <=64
-// entry that space).  Threads past the last row stay to the end, because
-// every thread of a block meets each tile's barriers.
-//
-// Replaces the same TPU kernels as dia_sweep_kernel, at the band counts
-// of the structured 3D-1D path: tpuamg/sparse/dia_pallas.py:_spmv_kernel
-// and :_residual_kernel behind maybe_pdia (tpuamg/amg/structured.py:
-// 910-912, 944-948, 1097-1098, 1108-1109; dia_max_offsets=1024).  Bound on
-// an H100: bytes, nd * n * plane_bytes + 4 n [x] + 4 n [y] (+ 4 n [b]),
-// over 3.35 TB/s; at 2 flops per 4 (f32) plane bytes it is far from the
-// flop bound.  x is read nd times at shifted windows; with hundreds of
-// bands those windows span more than L1, so the x reads lean on L2.
+// The planes design of K1's wide entry, kept for comparison on the card
+// (sparse/dia_kernels.py:dia_spmv_wide_planes; no route launches it: the
+// wide entry is dia_tiles.cu, which reads only the nonzeros and equals
+// this kernel bit for bit).  Any band count.  The offsets stay in a
+// device int32 array that the caller uploads; every block stages them in
+// shared memory, kWideTile at a time (8 KB), and each thread loops over
+// them for its row, in the stored diagonal order, as dia_row does.  The
+// row loop is the same as the <=64 entry's; only where the offsets live
+// differs (kernel parameters hold 4 KB at most, and Offsets by value
+// would cost every launch of the <=64 entry that space).  Threads past
+// the last row stay to the end, because every thread of a block meets
+// each tile's barriers.  It streams every padded plane: nd * n *
+// plane_bytes, 25-40x the nonzeros at the structured path's band counts.
 constexpr int kWideTile = 2048;
 
 template <typename P>
@@ -150,9 +145,9 @@ extern "C" int tpuamg_dia_sweep_pad(const void* planes, int planes_bf16,
                            offsets, stream);
 }
 
-// The wide entry (any nd): as tpuamg_dia_sweep, but the offsets are a
-// DEVICE array of nd int32 values, read by every block into shared
-// memory, kWideTile at a time.
+// The planes design of the wide entry (any nd; comparison only): as
+// tpuamg_dia_sweep, but the offsets are a DEVICE array of nd int32
+// values, read by every block into shared memory, kWideTile at a time.
 extern "C" int tpuamg_dia_sweep_wide(const void* planes, int planes_bf16,
                                      const void* x, const void* b, void* y,
                                      long long n, int nd,

@@ -51,6 +51,7 @@ _SIGNATURES = {
     "tpuamg_dia_sweep": (_P, _I, _P, _P, _P, _LL, _I, _P, _P),
     "tpuamg_dia_sweep_pad": (_P, _I, _P, _LL, _P, _P, _LL, _I, _P, _P),
     "tpuamg_dia_sweep_wide": (_P, _I, _P, _P, _P, _LL, _I, _P, _P),
+    "tpuamg_dia_tiles": (_P, _P, _P, _P, _I, _P),
     "tpuamg_cheb_step": (_P, _I, _I, _P, _P, _I, _I, _P, _P, _LL, _P, _P,
                          _P, _P, _LL, _I, _I, _F, _F, _P),
     "tpuamg_cheb_apply": (_P, _I, _P, _P, _P, _LL, _I, _P, _I, _F, _F, _P),

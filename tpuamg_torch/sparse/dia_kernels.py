@@ -9,9 +9,11 @@ launch K1; on a CPU tensor they run the plain version below (a sum of
 shifted slices); on anything else they raise.  Up to ``kernels.
 MAX_DIAGS`` (64) bands K1's entry takes the offsets by value; above that
 (the structured 3D-1D path's operators, hundreds to thousands of bands)
-its wide entry reads them from an int32 device array that ``KernelDIA``
-uploads once (``offsets_dev``) and stages them in shared memory: a rule
-on the band count, not a fallback.
+its wide entry (``sparse/dia_tiles.py``, csrc/dia_tiles.cu) walks a
+tile-compacted layout of the operator's nonzeros, which ``KernelDIA``
+builds once: a rule on the band count, not a fallback.  The earlier wide
+design, one thread per row over every padded plane (csrc/dia.cu), stays
+as ``dia_spmv_wide_planes``, for comparison on the card only.
 
 ``FusedChebSmoother`` takes the place of the JAX package's smoother of
 the same name: a whole Chebyshev sweep (``iters`` x degree steps of
@@ -41,6 +43,7 @@ import torch
 
 from .. import kernels
 from ..amg.cycle_program import SweepProgram
+from .dia_tiles import build_tiles, dia_spmv_tiles
 from .host import HostCSR
 
 
@@ -71,12 +74,12 @@ def dia_spmv_plain(offsets, planes, x, b=None, out=None, x_pad=0):
 
 
 def offsets_tensor(offsets, device):
-    """The offsets as the int32 device array K1's wide entry reads."""
+    """The offsets as the int32 device array that the planes design of
+    the wide entry (dia_spmv_wide_planes) reads."""
     return torch.as_tensor(np.asarray(offsets, dtype=np.int32)).to(device)
 
 
-def dia_spmv(offsets, planes, x, b=None, out=None, x_pad=None,
-             offsets_dev=None):
+def dia_spmv(offsets, planes, x, b=None, out=None, x_pad=None):
     """y = A x (b is None) or y = b - A x, A in DIA planes (nd, n).
 
     x_pad: None reads x over [0, n); an int reads it from a buffer of
@@ -87,9 +90,9 @@ def dia_spmv(offsets, planes, x, b=None, out=None, x_pad=None,
     and out float32 and the planes float32 or bfloat16.  Which entry is a
     rule on the band count: up to ``kernels.MAX_DIAGS`` bands the offsets
     go by value (its padded-x entry when x_pad is an int); above it the
-    wide entry reads them from ``offsets_dev``, an int32 device array of
-    the offsets (``offsets_tensor``; uploaded here when not given, so
-    callers that repeat a call keep one, as KernelDIA does).  The wide
+    wide entry walks a tile layout of the planes (``dia_tiles``), which
+    this call builds for itself (counted as ``dia_tiles_build``):
+    callers that repeat a call keep one, as KernelDIA does.  The wide
     entry has no padded-x form."""
     if x.device.type == "cpu":
         return dia_spmv_plain(offsets, planes, x, b, out, x_pad or 0)
@@ -98,7 +101,9 @@ def dia_spmv(offsets, planes, x, b=None, out=None, x_pad=None,
         if x_pad is not None:
             raise ValueError(f"K1's padded-x entry takes at most "
                              f"{kernels.MAX_DIAGS} diagonals, not {nd}")
-        return _dia_spmv_wide(offsets, planes, x, b, out, offsets_dev)
+        kernels.require(planes, "planes", numel=nd * x.shape[0],
+                        device=x.device)
+        return dia_spmv_tiles(build_tiles(offsets, planes), x, b, out)
     n = x.shape[0] - 2 * (x_pad or 0)
     kernels.require(x, "x", dtype=torch.float32)
     kernels.require(planes, "planes", numel=nd * n, device=x.device)
@@ -125,9 +130,14 @@ def dia_spmv(offsets, planes, x, b=None, out=None, x_pad=None,
     return out
 
 
-def _dia_spmv_wide(offsets, planes, x, b, out, offsets_dev):
-    """K1's wide entry (csrc/dia.cu, tpuamg_dia_sweep_wide): any band
-    count, offsets from a device array."""
+def dia_spmv_wide_planes(offsets, planes, x, b=None, out=None,
+                         offsets_dev=None):
+    """The earlier design of K1's wide entry, kept to time beside the tile
+    walk on the card: csrc/dia.cu's dia_wide_kernel (tpuamg_dia_sweep_wide),
+    one thread per row over every padded plane, the offsets from an int32
+    device array (``offsets_tensor``; uploaded here when not given).
+    CUDA tensors only; no route calls it.  Launch counts
+    ``dia_spmv_wide_planes`` / ``dia_residual_wide_planes``."""
     n = x.shape[0]
     nd = len(offsets)
     kernels.require(x, "x", dtype=torch.float32)
@@ -145,7 +155,7 @@ def _dia_spmv_wide(offsets, planes, x, b, out, offsets_dev):
                     device=x.device)
     if kernels.overlaps(out, x):
         raise ValueError("out must not overlap x")
-    name = "dia_spmv_wide" if b is None else "dia_residual_wide"
+    name = "dia_spmv_wide_planes" if b is None else "dia_residual_wide_planes"
     rc = kernels.lib().tpuamg_dia_sweep_wide(
         planes.data_ptr(), kernels.storage_flag(planes), x.data_ptr(),
         None if b is None else b.data_ptr(), out.data_ptr(), n, nd,
@@ -166,13 +176,16 @@ def dia_spmv_pallas(A, x, block=8192):
     K1's unpadded entry reads exactly that: its bounds checks give 0
     outside [0, n).  So this calls K1 on x as it is, with no padded copy
     and nothing allocated but the output (the plain version on a CPU
-    tensor).  The JAX kernel accepts only offsets that are multiples of
-    1024, a limit of the TPU compiler; this one takes any.  ``block``
-    sized the TPU kernel's VMEM tiles and is accepted and ignored."""
+    tensor).  Above kernels.MAX_DIAGS bands it is K1's wide entry, on the
+    layout a KernelDIA keeps or, for a DIA, one built for the call.  The
+    JAX kernel accepts only offsets that are multiples of 1024, a limit
+    of the TPU compiler; this one takes any.  ``block`` sized the TPU
+    kernel's VMEM tiles and is accepted and ignored."""
     del block
+    if isinstance(A, KernelDIA):
+        return A.matvec(x)
     planes = getattr(A, "planes", None)
-    planes = A.data if planes is None else planes
-    return dia_spmv(A.offsets, planes, x)
+    return dia_spmv(A.offsets, A.data if planes is None else planes, x)
 
 
 class KernelDIA:
@@ -187,9 +200,7 @@ class KernelDIA:
         self.planes = planes
         self.shape = tuple(shape)
         self.nnz = int(nnz)
-        # the offsets on the planes' device, for K1's wide entry (more
-        # than kernels.MAX_DIAGS bands): uploaded once, at the first call
-        self._offsets_dev = None
+        self._tiles = None      # K1's wide layout, built at the first call
 
     @property
     def dtype(self):
@@ -216,24 +227,30 @@ class KernelDIA:
     def to_host(self) -> HostCSR:
         return self.to_dia().to_host()
 
-    def offsets_dev(self):
-        """The offsets as an int32 tensor on the planes' device (None
-        while the operator has at most kernels.MAX_DIAGS bands or lives
-        on the CPU: those calls take the offsets by value)."""
-        if (self._offsets_dev is None and self.planes.device.type == "cuda"
-                and len(self.offsets) > kernels.MAX_DIAGS):
-            self._offsets_dev = offsets_tensor(self.offsets,
-                                               self.planes.device)
-        return self._offsets_dev
+    def tiles(self):
+        """The tile-compacted layout of the planes that K1's wide entry
+        walks (dia_tiles.py), for more than kernels.MAX_DIAGS bands (None
+        otherwise): built at the first call, on the planes' device, and
+        built again only when ``planes`` was replaced or written in place
+        since."""
+        if len(self.offsets) <= kernels.MAX_DIAGS:
+            return None
+        if self._tiles is None or not self._tiles.fresh(self.planes):
+            self._tiles = build_tiles(self.offsets, self.planes)
+        return self._tiles
 
     def matvec(self, x):
-        return dia_spmv(self.offsets, self.planes, x,
-                        offsets_dev=self.offsets_dev())
+        tiles = self.tiles()
+        if tiles is None:
+            return dia_spmv(self.offsets, self.planes, x)
+        return dia_spmv_tiles(tiles, x)
 
     def residual(self, x, b):
         """b - A @ x in one K1 launch."""
-        return dia_spmv(self.offsets, self.planes, x, b,
-                        offsets_dev=self.offsets_dev())
+        tiles = self.tiles()
+        if tiles is None:
+            return dia_spmv(self.offsets, self.planes, x, b)
+        return dia_spmv_tiles(tiles, x, b)
 
     def diagonal(self):
         if 0 in self.offsets:
